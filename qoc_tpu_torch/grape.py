@@ -1,0 +1,340 @@
+"""Public API: ``Grape(...)`` on PyTorch (port of ``qoc_tpu.grape``).
+
+Same positional arguments, keyword defaults and ``(uks, U_final)`` return
+as qoc_tpu's ``Grape`` (and the reference, main_grape/grape.py:19), plus
+``device``: where the problem's tensors live.  ``None`` takes the first
+CUDA device when torch sees one, else the CPU, as qoc_tpu takes JAX's
+default backend.
+
+Supported in this slice: ``method="Adam"`` and ``"EVOLVE"``, exact
+gradients, no penalties.  On a CUDA device an Adam run goes through the
+fused segment kernel (``ops.mega``) whenever ``mega_supported`` holds
+(``engine="auto"`` or ``"mega"``), or through the per-iteration runner
+over the tree chain kernel (``engine="tree"``).  On the CPU,
+``engine="mega"`` runs the segment's plain torch version, and everything
+else runs the plain engines.  The other methods, penalties, resume and
+the IPython dashboard are not ported yet (ROADMAP.md) and raise
+``NotImplementedError`` (the dashboard: ``show_plots`` prints instead).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .models.forward import make_forward
+from .models.system import ControlProblem
+from .ops.mega import make_mega_segment_runner, mega_supported
+from .optim.adam import init_adam_state, make_segment_runner
+from .optim.convergence import ConvergenceSettings, History
+from .routing import announce, fused_fallback_reasons
+from .utils import analysis as _analysis
+
+
+class GrapeResult:
+    """Everything a run produced (the reference returns only (uks, Uf))."""
+
+    def __init__(self, uks, Uf, u_base, loss, reg_loss, unitary_scale,
+                 iterations, history, file_path, inter_vecs=None, problem=None,
+                 fidelity_f64=None, engine=None):
+        self.uks = uks
+        self.Uf = Uf
+        self.u_base = u_base
+        self.loss = loss
+        self.reg_loss = reg_loss
+        self.unitary_scale = unitary_scale
+        self.iterations = iterations
+        self.history = history
+        self.file_path = file_path
+        self.inter_vecs = inter_vecs
+        self.problem = problem
+        # float64 recompute of the final fidelity (analysis.fidelity_f64)
+        self.fidelity_f64 = fidelity_f64
+        self.engine = engine           # the routing line's engine name
+
+    def __iter__(self):  # allow `uks, Uf = Grape(...)` tuple unpacking
+        return iter((self.uks, self.Uf))
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to qoc_tpu_torch yet (see ROADMAP.md)")
+
+
+def Grape(
+    H0,
+    Hops,
+    Hnames,
+    U,
+    total_time,
+    steps,
+    states_concerned_list,
+    convergence: Optional[dict] = None,
+    U0=None,
+    reg_coeffs: Optional[dict] = None,
+    dressed_info: Optional[dict] = None,
+    maxA=None,
+    use_gpu: bool = True,            # accepted for compat; see ``device``
+    sparse_H: bool = True,           # accepted for compat; ignored
+    sparse_U: bool = False,
+    sparse_K: bool = False,
+    draw=None,
+    initial_guess=None,
+    show_plots: bool = True,
+    unitary_error: float = 1e-4,
+    method: str = "Adam",
+    state_transfer: bool = False,
+    no_scaling: bool = False,
+    freq_unit: str = "GHz",
+    file_name: Optional[str] = None,
+    save: bool = True,
+    data_path: Optional[str] = None,
+    Taylor_terms=None,
+    use_inter_vecs: bool = True,
+    gradient_mode: str = "exact",
+    engine: str = "auto",
+    seed: Optional[int] = None,
+    remat: bool = False,
+    resume_from: Optional[str] = None,
+    device=None,
+) -> GrapeResult:
+    grape_start_time = time.time()
+    del draw, freq_unit, show_plots   # dashboard-only arguments
+    method_u = method.upper()
+    if method_u not in ("ADAM", "EVOLVE"):
+        raise _not_ported(f"method={method!r}")
+    if reg_coeffs:
+        raise _not_ported("reg_coeffs (the penalties, models/costs.py)")
+    if resume_from is not None:
+        raise _not_ported("resume_from (utils/checkpoint.py)")
+    if remat:
+        raise _not_ported("remat")
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+
+    file_path = None
+    if save:
+        from .utils.h5 import next_run_path, require_h5py
+
+        require_h5py()
+        if file_name is None:
+            raise ValueError("Grape function input: file_name, is not specified.")
+        if data_path is None:
+            raise ValueError("Grape function input: data_path, is not specified.")
+        file_path = next_run_path(data_path, file_name)
+        print("data saved at: " + str(file_path))
+
+    conv = ConvergenceSettings.from_dict(convergence)
+
+    if save:
+        from .utils.h5 import save_run_inputs
+
+        save_run_inputs(
+            file_path,
+            H0=H0, Hops=Hops, Hnames=Hnames, U=U,
+            total_time=total_time, steps=steps,
+            states_concerned_list=states_concerned_list,
+            maxA=maxA, initial_guess=initial_guess, method=method,
+            convergence=convergence
+            or {"rate": conv.rate, "update_step": conv.update_step,
+                "max_iterations": conv.max_iterations,
+                "conv_target": conv.conv_target,
+                "learning_rate_decay": conv.learning_rate_decay},
+            reg_coeffs=reg_coeffs, dressed_info=dressed_info,
+            use_gpu=use_gpu, sparse_H=sparse_H, sparse_U=sparse_U,
+            sparse_K=sparse_K,
+        )
+
+    problem = ControlProblem.build(
+        H0, Hops, Hnames, U, total_time, steps, states_concerned_list,
+        U0=U0, dressed_info=dressed_info, maxA=maxA,
+        initial_guess=initial_guess, unitary_error=unitary_error,
+        state_transfer=state_transfer, no_scaling=no_scaling,
+        Taylor_terms=Taylor_terms, use_inter_vecs=use_inter_vecs, seed=seed,
+    )
+    print(
+        "Using %d Taylor terms and %d Scaling & Squaring terms"
+        % (problem.taylor_terms, problem.taylor_scaling)
+    )
+    if save:
+        from .utils.h5 import H5File
+
+        with H5File(file_path, "a") as hf:
+            hf.add("taylor_terms", problem.taylor_terms)
+            hf.add("taylor_scaling", problem.taylor_scaling)
+            hf.add("initial_vectors_c", problem.initial_vectors_c)
+
+    # analysis forward (emits inter_vecs) vs lean optimization loss
+    fwd_engine = "auto" if engine == "mega" else engine
+    forward, _ = make_forward(problem, gradient_mode=gradient_mode,
+                              engine=fwd_engine, lean=False, device=device)
+    _, loss_fn = make_forward(problem, gradient_mode=gradient_mode,
+                              engine=fwd_engine, lean=True, device=device)
+
+    def analyse(u_base):
+        with torch.no_grad():
+            return forward(torch.as_tensor(
+                np.asarray(u_base, dtype=np.float32), device=device))
+
+    history = History()
+    evol_state = {"last_idx": 0}
+
+    def maybe_save_evolution(iteration, u_base):
+        """Evolution snapshots every evol_save_step iterations
+        (run_session.py:84-91)."""
+        es = conv.evol_save_step
+        if not save or es <= 0 or iteration <= 0:
+            return
+        idx = iteration // es
+        if idx <= evol_state["last_idx"]:
+            return
+        evol_state["last_idx"] = idx
+        out = analyse(u_base)
+        _analysis.append_evolution(
+            file_path, problem, out.final_state.cpu().numpy(),
+            None if out.inter_vecs is None else out.inter_vecs.cpu().numpy())
+
+    def evol_boundary_step(iteration, loss, reg_loss, uscale, u_base,
+                           start_time):
+        """Evol-grid-only boundary: a metrics row, then the snapshot."""
+        es = conv.evol_save_step
+        if (save and es > 0 and iteration > 0 and iteration % es == 0
+                and iteration // es > evol_state["last_idx"]):
+            _analysis.append_metrics(
+                file_path, error=loss, reg_error=reg_loss,
+                uks=_analysis.uks_from_base(problem, u_base),
+                iteration=iteration, run_time=time.time() - start_time,
+                unitary_scale=uscale,
+            )
+        maybe_save_evolution(iteration, u_base)
+
+    def save_step(iteration, loss, reg_loss, g2, uscale, u_base, start_time,
+                  lr=None):
+        history.record(iteration, loss, reg_loss, g2, uscale, lr=lr)
+        if save:
+            _analysis.append_metrics(
+                file_path,
+                error=loss, reg_error=reg_loss,
+                uks=_analysis.uks_from_base(problem, u_base),
+                iteration=iteration,
+                run_time=time.time() - start_time,
+                unitary_scale=uscale,
+            )
+        maybe_save_evolution(iteration, u_base)
+        # show_plots would refresh qoc_tpu's IPython dashboard; the port
+        # has none yet, so both settings print
+        print(
+            "Error = :%1.2e; Runtime: %.1fs; Iterations = %d, "
+            "grads =  %10.3e, unitary_metric = %.5f"
+            % (loss, time.time() - start_time, iteration, g2, uscale)
+        )
+
+    def next_stop(it: int) -> int:
+        """Next segment boundary: the update_step grid and, when saving,
+        the evol_save_step grid."""
+        nxt = (it // conv.update_step + 1) * conv.update_step
+        es = conv.evol_save_step
+        if save and es > 0:
+            nxt = min(nxt, (it // es + 1) * es)
+        return min(nxt, conv.max_iterations + 1)
+
+    start_time = time.time()
+
+    if method_u == "EVOLVE":
+        resolved = forward.resolved_engine
+        announce("engine", resolved)
+        u_base = np.asarray(problem.u0_base)
+        out = analyse(u_base)
+        loss, reg_loss, uscale = (
+            float(out.loss), float(out.reg_loss), float(out.unitary_scale))
+        iterations = 0
+        save_step(0, loss, reg_loss, 0.0, uscale, u_base, start_time)
+    else:
+        on_cuda = device.type == "cuda"
+        use_mega = (
+            engine in ("auto", "mega")
+            and mega_supported(problem, reg_coeffs, gradient_mode)
+            and (engine == "mega" or on_cuda)
+        )
+        if use_mega:
+            resolved = ("mega (fused Adam segment CUDA kernel)" if on_cuda
+                        else "mega (plain torch segment reference on cpu)")
+            announce("engine", resolved)
+            init_mega, run_mega, unpad = make_mega_segment_runner(
+                problem, conv, device=device)
+            state = init_mega(problem.u0_base)
+
+            def advance(s, stop_at):
+                return run_mega(s, stop_at - s.iteration)
+        else:
+            resolved = loss_fn.resolved_engine
+            announce("engine", resolved, reasons=(
+                fused_fallback_reasons(problem, reg_coeffs, gradient_mode,
+                                       on_accel=on_cuda)
+                if engine == "auto" else None))
+            advance = make_segment_runner(loss_fn, conv)
+            state = init_adam_state(
+                torch.as_tensor(problem.u0_base, device=device), conv)
+
+            def unpad(u):
+                return u.detach().cpu().numpy()
+
+        def host_u(s):
+            return unpad(s.u_base)
+
+        while True:
+            state = advance(state, next_stop(state.iteration))
+            it_now = state.iteration
+            if it_now % conv.update_step == 0 or state.done:
+                save_step(it_now, state.loss, state.reg_loss,
+                          state.grad_squared, state.unitary_scale,
+                          host_u(state), start_time,
+                          lr=conv.learning_rate(it_now))
+            else:
+                evol_boundary_step(it_now, state.loss, state.reg_loss,
+                                   state.unitary_scale, host_u(state),
+                                   start_time)
+            if state.done:
+                break
+        u_base = host_u(state)
+        loss, reg_loss = state.loss, state.reg_loss
+        uscale = state.unitary_scale
+        iterations = state.iteration
+        out = analyse(u_base)
+
+    final_state = out.final_state.cpu().numpy()
+    inter_vecs = (None if out.inter_vecs is None
+                  else out.inter_vecs.cpu().numpy())
+    uks = _analysis.uks_from_base(problem, u_base)
+    fid64 = _analysis.fidelity_f64(problem, uks)
+    if save:
+        _analysis.append_metrics(
+            file_path, error=loss, reg_error=reg_loss, uks=uks,
+            iteration=iterations, run_time=time.time() - start_time,
+            unitary_scale=uscale,
+        )
+        _analysis.append_evolution(file_path, problem, final_state, inter_vecs)
+
+    if problem.state_transfer:
+        Uf = []
+    else:
+        Uf = _analysis.final_state_to_complex(problem, final_state)
+
+    if save:
+        from .utils.h5 import H5File
+
+        with H5File(file_path, "a") as hf:
+            hf.add("wall_clock_time", np.array(time.time() - grape_start_time))
+            hf.add("fidelity_f64", np.array(fid64))
+        print("data saved at: " + str(file_path))
+
+    return GrapeResult(
+        uks=uks, Uf=Uf, u_base=u_base, loss=loss, reg_loss=reg_loss,
+        unitary_scale=uscale, iterations=iterations, history=history,
+        file_path=file_path, inter_vecs=inter_vecs, problem=problem,
+        fidelity_f64=fid64, engine=resolved,
+    )

@@ -1,0 +1,67 @@
+"""Carry problems and optimizer state across: numpy -> torch tensors, and
+Adam state in the optax layout qoc_tpu checkpoints use.
+
+``adam_state_from_numpy`` takes the leaves that
+``qoc_tpu.ops.pallas_mega.mega_state_to_optax`` (or qoc_tpu's optax Adam
+chain) holds: ``u`` [K, T], ``mu``/``nu`` (the ScaleByAdamState moments),
+``count`` (its step count) and ``lr`` (the exponential-decay state's
+``{"lr": ...}``).  A run saved by qoc_tpu can therefore continue in the
+port; ``adam_state_to_numpy`` gives the same leaves back.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .optim.adam import AdamState
+
+
+def full_fp32_matmul() -> None:
+    """No TF32 anywhere: the unitarity budget needs full float32 products
+    (qoc_tpu PERF.md "Matmul precision")."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def problem_tensors(problem, device) -> dict:
+    """The problem's device arrays as float32 tensors on ``device``:
+    mats [K+1, 2N, 2N], U0_iso [2N, 2N], initial_vectors / target_vectors
+    [2N, V], ops_max_amp [K], u0_base [K, T]."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        full_fp32_matmul()
+    names = ("mats", "U0_iso", "initial_vectors", "target_vectors",
+             "ops_max_amp", "u0_base")
+    return {
+        n: torch.as_tensor(np.asarray(getattr(problem, n), dtype=np.float32),
+                           device=device)
+        for n in names
+    }
+
+
+def adam_state_from_numpy(u, mu, nu, count, lr, steps: int, Tp: int,
+                          device="cpu") -> AdamState:
+    """An AdamState on ``device`` whose pulse and moments are zero-padded
+    from ``steps`` to ``Tp`` lanes (``Tp = steps`` for the per-iteration
+    runner, the power-of-two lane count for the segment kernel)."""
+    def pad(x):
+        x = np.asarray(x, dtype=np.float32)[:, :steps]
+        x = np.pad(x, ((0, 0), (0, Tp - steps)))
+        return torch.as_tensor(x, device=torch.device(device))
+
+    return AdamState(
+        u_base=pad(u), m=pad(mu), v=pad(nu),
+        lr=float(np.float32(np.asarray(lr))), iteration=int(count),
+        loss=float("inf"), reg_loss=float("inf"),
+        grad_squared=float("inf"), unitary_scale=0.0, done=False,
+    )
+
+
+def adam_state_to_numpy(state: AdamState, steps: int):
+    """(u, mu, nu, count, lr) as numpy, trimmed to ``steps`` lanes."""
+    def host(x):
+        return x.detach().cpu().numpy()[:, :steps]
+
+    return (host(state.u_base), host(state.m), host(state.v),
+            np.int32(state.iteration), np.float32(state.lr))

@@ -1,0 +1,112 @@
+"""The forward model: pulse weights -> propagation -> loss + metrics (port
+of ``qoc_tpu.models.forward``, iso representation).
+
+``make_forward`` closes over a ``ControlProblem`` whose arrays it moves to
+``device`` once, and returns plain torch functions of the pulse
+``u_base [K, T]``: the analysis forward (``lean=False``: emits inter_vecs
+when ``use_inter_vecs``) and the lean optimization loss (intermediate
+states only when a cost reads them; the slice has no costs, so never).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..interop import problem_tensors
+from ..ops.inner_products import inner_product_2d
+from ..ops.propagation import (
+    evolve_unitary,
+    evolve_unitary_tree,
+    pick_engine,
+    resolve_state_engine,
+    resolve_unitary_engine,
+    state_transfer_chain,
+)
+from .system import ControlProblem
+
+
+class ForwardOutput(NamedTuple):
+    loss: torch.Tensor           # fidelity loss 1 - F
+    reg_loss: torch.Tensor       # loss + penalties (the optimization target)
+    unitary_scale: torch.Tensor  # unitarity diagnostic (tensorflow_state.py:225,:335)
+    final_state: torch.Tensor    # [2N, 2N] final unitary, or [2N, V] final vecs
+    inter_vecs: Optional[torch.Tensor]  # [T+1, 2N, V] or None
+    ops_weight: torch.Tensor     # [K, T] normalized weights sin(base)
+
+
+def make_forward(
+    problem: ControlProblem,
+    reg_coeffs: Optional[dict] = None,
+    gradient_mode: str = "exact",
+    engine: str = "auto",
+    lean: bool = False,
+    device="cpu",
+):
+    """Build ``forward(u_base) -> ForwardOutput`` and ``loss_fn(u_base) ->
+    (reg_loss, ForwardOutput)``; both carry ``.resolved_engine``."""
+    if reg_coeffs:
+        raise NotImplementedError(
+            "reg_coeffs: the penalties (models/costs.py) are not ported to "
+            "qoc_tpu_torch yet (ROADMAP.md, Queue 1, costs)")
+    p = problem
+    device = torch.device(device)
+    tens = problem_tensors(p, device)
+    mats, U0, psi0 = tens["mats"], tens["U0_iso"], tens["initial_vectors"]
+    target_vecs, max_amp = tens["target_vectors"], tens["ops_max_amp"]
+    N = p.state_num
+    needs_inter = p.use_inter_vecs and not lean
+    on_accel = device.type == "cuda"
+    if engine != "auto":
+        resolved_engine = engine
+    elif p.state_transfer:
+        resolved_engine = resolve_state_engine(
+            2 * N, p.steps, gradient_mode, not needs_inter, on_accel)
+    elif gradient_mode == "exact":
+        resolved_engine = resolve_unitary_engine(
+            2 * N, p.steps, p.taylor_scaling, gradient_mode, needs_inter,
+            on_accel)
+    else:
+        resolved_engine = pick_engine(2 * N, p.steps)
+    ones = torch.ones((1, p.steps), dtype=torch.float32, device=device)
+
+    def forward(u_base: torch.Tensor) -> ForwardOutput:
+        ops_weight = torch.sin(u_base)   # hard |u| <= maxA bound (tensorflow_state.py:176)
+        weights = torch.cat([ones, max_amp[:, None] * ops_weight])  # row 0 = drift
+        if p.state_transfer:
+            inter_vecs = state_transfer_chain(
+                mats, weights, psi0, p.taylor_terms,
+                gradient_mode=gradient_mode, engine=engine,
+                final_only=not needs_inter)
+            final_vecs = inter_vecs[-1]
+            loss = 1.0 - inner_product_2d(final_vecs, target_vecs, N)
+            unitary_scale = inner_product_2d(final_vecs, final_vecs, N)
+            final_state = final_vecs
+            if not needs_inter:
+                inter_vecs = None
+        else:
+            if resolved_engine == "tree" and not needs_inter:
+                final_U = evolve_unitary_tree(
+                    mats, weights, U0, p.taylor_terms, p.taylor_scaling)
+                inter_vecs = None
+            else:
+                final_U, inter_vecs = evolve_unitary(
+                    mats, weights, U0, psi0, p.taylor_terms,
+                    p.taylor_scaling, gradient_mode=gradient_mode,
+                    engine=resolved_engine, use_inter_vecs=needs_inter)
+            final_vecs = torch.matmul(final_U, psi0)
+            unitary_scale = (0.5 / N) * torch.sum(
+                torch.matmul(final_U.T, final_U))
+            loss = 1.0 - inner_product_2d(final_vecs, target_vecs, N)
+            final_state = final_U
+        return ForwardOutput(loss, loss, unitary_scale, final_state,
+                             inter_vecs, ops_weight)
+
+    def loss_fn(u_base: torch.Tensor):
+        out = forward(u_base)
+        return out.reg_loss, out
+
+    forward.resolved_engine = resolved_engine
+    loss_fn.resolved_engine = resolved_engine
+    return forward, loss_fn

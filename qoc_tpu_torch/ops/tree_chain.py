@@ -1,0 +1,97 @@
+"""Chain product of per-step Taylor propagators (port of
+``qoc_tpu.ops.pallas_tree``).
+
+    E_total = P_{T-1} @ ... @ P_0,   P_t = Taylor_order(A_t / 2^s)^(2^s),
+    A_t = sum_k w[k, t] mats[k]
+
+``fused_tree_chain`` runs it on the card through the hand-written CUDA
+kernels of ``csrc/tree_chain.cu`` (forward: Taylor steps, squarings and a
+pairwise product tree; backward: the exact reverse of all three), wrapped
+in a ``torch.autograd.Function`` that is differentiable in the weights.
+``tree_chain_reference`` is the plain torch version of the same function:
+the same zero padding to a power of two and the same factor order, with
+autograd for the gradient.  The wrapper uses the plain version for CPU
+tensors only; for CUDA tensors it launches the kernels or raises.
+
+Serves both propagation modes: unitary (order=taylor_terms, scaling) and
+state-transfer finals (order=taylor_terms-1, scaling=0).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import _cuda
+from .expm import taylor_expm, weighted_hamiltonians
+
+
+def next_pow2(x: int) -> int:
+    return 1 << (x - 1).bit_length()
+
+
+def levels(Tp: int) -> int:
+    return int(Tp).bit_length() - 1
+
+
+def tree_chain_supported(M_real: int, steps: int) -> bool:
+    """qoc_tpu's admission rule, kept so both packages route alike:
+    M_real <= 12 and residuals under 10 MB.  The rule was sized for TPU
+    VMEM; the H100 kernels keep residuals in device memory, and their own
+    bound is still to be measured."""
+    MM = M_real * M_real
+    Tp = next_pow2(max(steps, 2))
+    bufs = (4 + levels(Tp)) * MM * Tp * 4
+    return MM <= 144 and bufs < 10 * (1 << 20)
+
+
+def _pad_lanes(weights: torch.Tensor) -> torch.Tensor:
+    """Zero-pad ALL weight rows (the drift row too) to Tp lanes, so every
+    padded lane's propagator is exp(0) = I."""
+    T = weights.shape[1]
+    return F.pad(weights, (0, next_pow2(max(T, 2)) - T))
+
+
+def tree_chain_reference(mats: torch.Tensor, weights: torch.Tensor,
+                         order: int, scaling: int) -> torch.Tensor:
+    """Plain torch: batched Taylor over the padded lanes, then the pairwise
+    tree (level l multiplies X[t + 2^l] @ X[t]).  mats [K, M, M], weights
+    [K, T] -> [M, M]."""
+    X = taylor_expm(weighted_hamiltonians(mats, _pad_lanes(weights)), order,
+                    scaling)
+    while X.shape[0] > 1:
+        X = torch.matmul(X[1::2], X[0::2])
+    return X[0]
+
+
+class _TreeChain(torch.autograd.Function):
+    """Kernels 1 and 2: forward keeps the residuals, backward replays them."""
+
+    @staticmethod
+    def forward(ctx, mats, weights, order, scaling):
+        mats = mats.contiguous()
+        w = _pad_lanes(weights).contiguous()
+        E, an, sq, tree = _cuda.tree_forward(mats, w, order, scaling)
+        ctx.save_for_backward(mats, an, sq, tree)
+        ctx.order, ctx.scaling, ctx.T = order, scaling, weights.shape[1]
+        return E
+
+    @staticmethod
+    def backward(ctx, gbar):
+        mats, an, sq, tree = ctx.saved_tensors
+        wbar = _cuda.tree_backward(mats, an, sq, tree, gbar.contiguous(),
+                                   ctx.order, ctx.scaling)
+        return None, wbar[:, :ctx.T], None, None
+
+
+def fused_tree_chain(mats: torch.Tensor, weights: torch.Tensor, order: int,
+                     scaling: int) -> torch.Tensor:
+    """Full chain product E_total [M, M] = P_{T-1} @ ... @ P_0.
+
+    mats [K, M, M] (row 0 = drift, constant), weights [K, T] (row 0 = 1);
+    powers 0..order kept, ``scaling`` squarings.  Differentiable in
+    ``weights`` (exact); ``mats`` gets no gradient on the kernel path.
+    """
+    if weights.device.type == "cpu":
+        return tree_chain_reference(mats, weights, order, scaling)
+    return _TreeChain.apply(mats, weights, order, scaling)
