@@ -1,10 +1,12 @@
 // Device functions of the tree chain: Taylor step propagators, the
-// pairwise product tree, and their exact reverse mode.
+// pairwise product tree, the inclusive prefix scan, and their exact
+// reverse mode.
 //
 // Replaces the value-level functions of qoc_tpu/ops/pallas_tree.py
 // (taylor_step_vals, taylor_step_backward_vals, tree_forward_vals,
-// tree_backward_vals), which both the standalone tree kernels
-// (tree_chain.cu) and the fused Adam segment kernel (mega.cu) run.
+// tree_backward_vals, scan_forward_vals, scan_backward_vals), which the
+// standalone tree kernels (tree_chain.cu) and the fused Adam segment
+// kernel (mega.cuh) run.
 //
 // Layout.  Every per-step matrix array is [levels][M*M][Tp] float32: for
 // element e = i*M + j of the matrix at time lane t the offset is
@@ -260,6 +262,97 @@ __device__ __forceinline__ void tree_backward(const float* tree, int L,
     }
     __syncthreads();
   }
+}
+
+// ---- inclusive prefix scan (whole block) ---------------------------------
+
+// levels: [L+1][MM][Tp]; level 0 holds the step propagators on entry.
+// Hillis-Steele: level l+1 receives X_l[t] @ X_l[t - 2^l] at lanes
+// t >= 2^l (later time on the left) and X_l[t] at lanes t < 2^l, so level
+// L holds the prefix product P_t ... P_0 at every lane t.  Each level
+// reads one buffer and writes the next (lane t writes while lane t + 2^l
+// reads), and every level's input stays as the residual scan_backward
+// reads.  Padded lanes hold identities, so their prefixes equal the full
+// chain.  The caller synchronises before (level 0 written); this
+// synchronises after each level.
+template <int M>
+__device__ __forceinline__ void scan_forward(float* levels, int L, int Tp) {
+  constexpr int MM = M * M;
+  const long lvl = (long)MM * Tp;
+  float X[MM], Y[MM];
+  for (int l = 0; l < L; ++l) {
+    const int d = 1 << l;
+    const float* src = levels + l * lvl;
+    float* dst = levels + (l + 1) * lvl;
+    for (int t = threadIdx.x; t < Tp; t += blockDim.x) {
+      mat_load<M>(src, Tp, t, X);
+      if (t >= d) {
+        mat_load<M>(src, Tp, t - d, Y);
+        for (int i = 0; i < M; ++i) {
+#pragma unroll
+          for (int j = 0; j < M; ++j) {
+            float acc = 0.0f;
+#pragma unroll
+            for (int m = 0; m < M; ++m) acc += X[i * M + m] * Y[m * M + j];
+            dst[(long)(i * M + j) * Tp + t] = acc;
+          }
+        }
+      } else {
+        mat_store<M>(dst, Tp, t, X);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Reverse of scan_forward.  bin [MM][Tp] holds the cotangent of level L
+// (dense over lanes) on entry; bout is scratch of the same shape.  Each
+// level reads one buffer and writes the other:
+//   Xbar_l[t] = (t < d ? Xbar[t] : Xbar[t] @ X_l[t-d]^T)
+//             + (t + d < Tp ? X_l[t+d]^T @ Xbar[t+d] : 0).
+// Returns the buffer that holds the cotangents of the step propagators.
+// The caller synchronises before (bin written); this synchronises after
+// each level.
+template <int M>
+__device__ __forceinline__ float* scan_backward(const float* levels, int L,
+                                                int Tp, float* bin,
+                                                float* bout) {
+  constexpr int MM = M * M;
+  const long lvl = (long)MM * Tp;
+  float B[MM], X[MM], R[MM];
+  for (int l = L - 1; l >= 0; --l) {
+    const int d = 1 << l;
+    const float* Xl = levels + l * lvl;
+    for (int t = threadIdx.x; t < Tp; t += blockDim.x) {
+      mat_load<M>(bin, Tp, t, B);
+      if (t >= d) {   // left operand of lane t's product
+        mat_load<M>(Xl, Tp, t - d, X);
+        mm_nt<M>(B, X, R);
+      } else {        // pass-through lane
+#pragma unroll
+        for (int e = 0; e < MM; ++e) R[e] = B[e];
+      }
+      if (t + d < Tp) {   // right operand of lane t+d's product
+        mat_load<M>(Xl, Tp, t + d, X);
+        mat_load<M>(bin, Tp, t + d, B);
+        for (int m = 0; m < M; ++m) {
+#pragma unroll
+          for (int j = 0; j < M; ++j) {
+            float acc = R[m * M + j];
+#pragma unroll
+            for (int i = 0; i < M; ++i) acc += X[i * M + m] * B[i * M + j];
+            R[m * M + j] = acc;
+          }
+        }
+      }
+      mat_store<M>(bout, Tp, t, R);
+    }
+    __syncthreads();
+    float* tmp = bin;
+    bin = bout;
+    bout = tmp;
+  }
+  return bin;
 }
 
 // w_bar[k] = sum_ij mats[k, i, j] * Abar[i, j]

@@ -6,15 +6,16 @@ as qoc_tpu's ``Grape`` (and the reference, main_grape/grape.py:19), plus
 CUDA device when torch sees one, else the CPU, as qoc_tpu takes JAX's
 default backend.
 
-Supported in this slice: ``method="Adam"`` and ``"EVOLVE"``, exact
-gradients, no penalties.  On a CUDA device an Adam run goes through the
-fused segment kernel (``ops.mega``) whenever ``mega_supported`` holds
-(``engine="auto"`` or ``"mega"``), or through the per-iteration runner
-over the tree chain kernel (``engine="tree"``).  On the CPU,
-``engine="mega"`` runs the segment's plain torch version, and everything
-else runs the plain engines.  The other methods, penalties, resume and
-the IPython dashboard are not ported yet (ROADMAP.md) and raise
-``NotImplementedError`` (the dashboard: ``show_plots`` prints instead).
+Supported: ``method="Adam"`` and ``"EVOLVE"``, exact gradients, and all
+seven penalties (``reg_coeffs``, ``models.costs``).  On a CUDA device an
+Adam run goes through the fused segment kernel (``ops.mega``) whenever
+``mega_supported`` holds (``engine="auto"`` or ``"mega"``), or through
+the per-iteration runner over the plain engines, or the tree chain
+kernel (``engine="tree"``).  On the CPU, ``engine="mega"`` runs the
+segment's plain torch version, and everything else runs the plain
+engines.  The other methods, resume and the IPython dashboard are not
+ported yet (ROADMAP.md) and raise ``NotImplementedError`` (the
+dashboard: ``show_plots`` prints instead).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .models.costs import cost_names, validate_reg_coeffs
 from .models.forward import make_forward
 from .models.system import ControlProblem
 from .ops.mega import make_mega_segment_runner, mega_supported
@@ -106,8 +108,6 @@ def Grape(
     method_u = method.upper()
     if method_u not in ("ADAM", "EVOLVE"):
         raise _not_ported(f"method={method!r}")
-    if reg_coeffs:
-        raise _not_ported("reg_coeffs (the penalties, models/costs.py)")
     if resume_from is not None:
         raise _not_ported("resume_from (utils/checkpoint.py)")
     if remat:
@@ -156,6 +156,7 @@ def Grape(
         state_transfer=state_transfer, no_scaling=no_scaling,
         Taylor_terms=Taylor_terms, use_inter_vecs=use_inter_vecs, seed=seed,
     )
+    validate_reg_coeffs(reg_coeffs, state_num=problem.state_num)
     print(
         "Using %d Taylor terms and %d Scaling & Squaring terms"
         % (problem.taylor_terms, problem.taylor_scaling)
@@ -170,9 +171,11 @@ def Grape(
 
     # analysis forward (emits inter_vecs) vs lean optimization loss
     fwd_engine = "auto" if engine == "mega" else engine
-    forward, _ = make_forward(problem, gradient_mode=gradient_mode,
+    forward, _ = make_forward(problem, reg_coeffs=reg_coeffs,
+                              gradient_mode=gradient_mode,
                               engine=fwd_engine, lean=False, device=device)
-    _, loss_fn = make_forward(problem, gradient_mode=gradient_mode,
+    _, loss_fn = make_forward(problem, reg_coeffs=reg_coeffs,
+                              gradient_mode=gradient_mode,
                               engine=fwd_engine, lean=True, device=device)
 
     def analyse(u_base):
@@ -261,11 +264,14 @@ def Grape(
             and (engine == "mega" or on_cuda)
         )
         if use_mega:
-            resolved = ("mega (fused Adam segment CUDA kernel)" if on_cuda
-                        else "mega (plain torch segment reference on cpu)")
+            names = cost_names(reg_coeffs)
+            resolved = "mega ({}{})".format(
+                "fused Adam segment CUDA kernel" if on_cuda
+                else "plain torch segment reference on cpu",
+                ", penalties: " + ", ".join(names) if names else "")
             announce("engine", resolved)
             init_mega, run_mega, unpad = make_mega_segment_runner(
-                problem, conv, device=device)
+                problem, conv, reg_coeffs=reg_coeffs, device=device)
             state = init_mega(problem.u0_base)
 
             def advance(s, stop_at):

@@ -27,12 +27,15 @@ def full_fp32_matmul() -> None:
 def problem_tensors(problem, device) -> dict:
     """The problem's device arrays as float32 tensors on ``device``:
     mats [K+1, 2N, 2N], U0_iso [2N, 2N], initial_vectors / target_vectors
-    [2N, V], ops_max_amp [K], u0_base [K, T]."""
+    [2N, V], ops_max_amp [K], u0_base [K, T], one_minus_gauss [K, T], and
+    v_sorted_iso [2N, 2N] when the problem is dressed."""
     device = torch.device(device)
     if device.type == "cuda":
         full_fp32_matmul()
     names = ("mats", "U0_iso", "initial_vectors", "target_vectors",
-             "ops_max_amp", "u0_base")
+             "ops_max_amp", "u0_base", "one_minus_gauss")
+    if problem.v_sorted_iso is not None:
+        names += ("v_sorted_iso",)
     return {
         n: torch.as_tensor(np.asarray(getattr(problem, n), dtype=np.float32),
                            device=device)

@@ -5,7 +5,8 @@ of ``qoc_tpu.models.forward``, iso representation).
 ``device`` once, and returns plain torch functions of the pulse
 ``u_base [K, T]``: the analysis forward (``lean=False``: emits inter_vecs
 when ``use_inter_vecs``) and the lean optimization loss (intermediate
-states only when a cost reads them; the slice has no costs, so never).
+states only when a selected cost reads them, ``INTER_VEC_COSTS``).  The
+regularized loss is ``loss + total_reg_cost(...)`` (``models.costs``).
 """
 
 from __future__ import annotations
@@ -24,7 +25,10 @@ from ..ops.propagation import (
     resolve_unitary_engine,
     state_transfer_chain,
 )
+from .costs import CostContext, total_reg_cost
 from .system import ControlProblem
+
+INTER_VEC_COSTS = ("forbidden_coeff_list", "forbidden", "speed_up")
 
 
 class ForwardOutput(NamedTuple):
@@ -46,17 +50,17 @@ def make_forward(
 ):
     """Build ``forward(u_base) -> ForwardOutput`` and ``loss_fn(u_base) ->
     (reg_loss, ForwardOutput)``; both carry ``.resolved_engine``."""
-    if reg_coeffs:
-        raise NotImplementedError(
-            "reg_coeffs: the penalties (models/costs.py) are not ported to "
-            "qoc_tpu_torch yet (ROADMAP.md, Queue 1, costs)")
     p = problem
     device = torch.device(device)
     tens = problem_tensors(p, device)
     mats, U0, psi0 = tens["mats"], tens["U0_iso"], tens["initial_vectors"]
     target_vecs, max_amp = tens["target_vectors"], tens["ops_max_amp"]
     N = p.state_num
-    needs_inter = p.use_inter_vecs and not lean
+    if lean:
+        needs_inter = p.use_inter_vecs and any(
+            k in (reg_coeffs or {}) for k in INTER_VEC_COSTS)
+    else:
+        needs_inter = p.use_inter_vecs
     on_accel = device.type == "cuda"
     if engine != "auto":
         resolved_engine = engine
@@ -100,7 +104,14 @@ def make_forward(
                 torch.matmul(final_U.T, final_U))
             loss = 1.0 - inner_product_2d(final_vecs, target_vecs, N)
             final_state = final_U
-        return ForwardOutput(loss, loss, unitary_scale, final_state,
+        ctx = CostContext(
+            ops_weight=ops_weight, inter_vecs=inter_vecs,
+            target_vecs=target_vecs, state_num=N, steps=p.steps, dt=p.dt,
+            total_time=p.total_time,
+            one_minus_gauss=tens["one_minus_gauss"],
+            v_sorted_iso=tens.get("v_sorted_iso"))
+        reg_loss = loss + total_reg_cost(ctx, reg_coeffs)
+        return ForwardOutput(loss, reg_loss, unitary_scale, final_state,
                              inter_vecs, ops_weight)
 
     def loss_fn(u_base: torch.Tensor):

@@ -1,11 +1,12 @@
 """Build and bind the port's CUDA kernels (``qoc_tpu_torch/csrc``).
 
-``nvcc`` compiles ``csrc/tree_chain.cu`` and ``csrc/mega.cu`` for
-``sm_90a`` into one shared library with a plain C interface, loaded with
-ctypes.  The build runs at the first launch, never at import, into
-``<repo>/.torch_ext_build/<hash of sources and flags>/``; it takes about a
-minute (18 template instances; no PyTorch headers are compiled).  ptxas'
-register and spill report is kept beside the library as ``build.log``.
+``nvcc`` compiles ``csrc/tree_chain.cu``, ``csrc/mega.cu`` and
+``csrc/mega_costs.cu`` for ``sm_90a`` (one process per source, all
+started together), then links them into one shared library with a plain
+C interface, loaded with ctypes.  The build runs at the first launch,
+never at import, into ``<repo>/.torch_ext_build/<hash of sources and
+flags>/`` (no PyTorch headers are compiled).  ptxas' register and spill
+report is kept beside the library as ``build.log``.
 
 There is no fallback: a missing ``nvcc``, a failed build or a failed
 launch raises.  Each launch wrapper checks its tensors, launches on
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -27,24 +29,37 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / ".torch_ext_build"
-SOURCES = ("tree_chain.cu", "mega.cu")
-HEADERS = ("tree_chain.cuh",)
+SOURCES = ("tree_chain.cu", "mega.cu", "mega_costs.cu")
+HEADERS = ("tree_chain.cuh", "mega.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 SUPPORTED_M = (2, 4, 6, 8, 10, 12)
 SMEM_LIMIT = 48 * 1024     # the kernels' dynamic shared memory (mats)
-MAX_V = 16                 # kMaxV in mega.cu
+MAX_V = 16                 # kMaxV in mega.cuh
+MAX_V_TRAJ = 8             # kMaxVTraj in mega.cuh (trajectory mode)
 
 # kernel name -> launches since the last reset_launch_counts()
-LAUNCHES = {"tree_forward": 0, "tree_backward": 0, "mega_segment": 0}
+LAUNCHES = {"tree_forward": 0, "tree_backward": 0, "mega_segment": 0,
+            "mega_segment_costs": 0}
 
 _lib = None
 _lock = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+
+
+class CostArgs(ctypes.Structure):
+    """Mirror of ``qoc::CostArgs`` (mega.cuh), field for field."""
+
+    _fields_ = ([(n, _P) for n in ("env", "forb", "dftc", "dfts", "dftct",
+                                    "dftst", "sw", "s2", "spec", "bar2")]
+                + [(n, _I) for n in ("nforb", "F", "traj")]
+                + [(n, _F) for n in ("a_amp", "a_env", "a_dwdt", "a_d2",
+                                      "inv_dt", "a_bp", "a_spd", "spd_c0",
+                                      "forb_c0")])
 
 
 def reset_launch_counts() -> None:
@@ -77,15 +92,29 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"build-{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}")
+    nvcc = _nvcc()
+    tag = str(os.getpid())
+    objs = [out_dir / f"{Path(src).stem}-{tag}.o" for src in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+            for src, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = [" ".join(c) + "\n" + o for c, o in zip(cmds, outs)]
+    failed = [o for p, o in zip(procs, outs) if p.returncode != 0]
+    tmp = out_dir / f"build-{tag}.so"
+    if not failed:
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(proc.stdout + proc.stderr)
+    (out_dir / "build.log").write_text("\n".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, lib)
     return lib
 
@@ -99,13 +128,15 @@ def _library():
                                              _P, _P, _P, _P, _P]
             lib.qoc_tree_backward.argtypes = [_P, _I, _I, _I, _I, _I, _P, _P,
                                               _P, _P, _P, _P, _P]
-            lib.qoc_mega_segment.argtypes = (
-                [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I]
-                + [_P] * 14 + [_F] * 11 + [_P])
+            mega = ([_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I]
+                    + [_P] * 14 + [_F] * 11)
+            lib.qoc_mega_segment.argtypes = mega + [_P]
+            lib.qoc_mega_segment_costs.argtypes = mega + [
+                ctypes.POINTER(CostArgs), _P]
             lib.qoc_error_string.argtypes = [_I]
             lib.qoc_error_string.restype = ctypes.c_char_p
             for fn in (lib.qoc_tree_forward, lib.qoc_tree_backward,
-                       lib.qoc_mega_segment):
+                       lib.qoc_mega_segment, lib.qoc_mega_segment_costs):
                 fn.restype = _I
             _lib = lib
     return _lib
@@ -189,45 +220,113 @@ def tree_backward(mats, an, sq, tree, gbar, order: int, scaling: int):
     return wbar
 
 
+def _mega_args(mats, psi0p, target, maxamp, u0rows, u, m, v, sf, met,
+               scratch, N, T, order, scaling, n_iters, unitary_mode, b1, b2,
+               eps, rate_factor, conv_target, min_grad, max_iterations):
+    """The operands both segment entry points share, in C order."""
+    K, M, _ = mats.shape
+    an, sq, tree, bar, g = scratch[:5]
+    return (mats.data_ptr(), K, M, N, T, u.shape[1], psi0p.shape[1], order,
+            scaling, int(n_iters), int(bool(unitary_mode)),
+            psi0p.data_ptr(), target.data_ptr(), maxamp.data_ptr(),
+            u0rows.data_ptr(), u.data_ptr(), m.data_ptr(), v.data_ptr(),
+            sf.data_ptr(), met.data_ptr(), an.data_ptr(), sq.data_ptr(),
+            tree.data_ptr(), bar.data_ptr(), g.data_ptr(), b1, b2,
+            float(1.0 - b1), float(1.0 - b2), eps, math.log(b1),
+            math.log(b2), rate_factor, conv_target, min_grad,
+            float(max_iterations))
+
+
 def mega_segment(mats, psi0p, target, maxamp, u0rows, u, m, v, sf, *,
                  N: int, T: int, order: int, scaling: int, n_iters: int,
                  unitary_mode: bool, b1: float, b2: float, eps: float,
                  rate_factor: float, conv_target: float, min_grad: float,
                  max_iterations: float, scratch):
-    """Kernel 3: ``n_iters`` Adam iterations in one launch.  u, m, v
-    [Kc, Tp] are updated IN PLACE; sf [3] = (lr, iteration, done).
-    Returns met [8] = (loss, grad^2, unitary_scale, lr, iteration, done,
-    reg_loss, 0).  ``scratch`` comes from ``mega_scratch`` and may be
-    reused across launches on one stream."""
-    import numpy as np
-
+    """Kernel 3, fidelity-only instance: ``n_iters`` Adam iterations in one
+    launch.  u, m, v [Kc, Tp] are updated IN PLACE; sf [3] = (lr,
+    iteration, done).  Returns met [8] = (loss, grad^2, unitary_scale, lr,
+    iteration, done, reg_loss, 0).  ``scratch`` comes from
+    ``mega_scratch`` and may be reused across launches on one stream."""
     dev = _check(mats, psi0p, target, maxamp, u0rows, u, m, v, sf)
     K, M, _ = mats.shape
-    Tp = u.shape[1]
+    _check_shape(K, M, u.shape[1])
     V = psi0p.shape[1]
-    _check_shape(K, M, Tp)
     if V > MAX_V:
         raise ValueError(f"V={V} concerned vectors exceed {MAX_V}")
-    an, sq, tree, bar, g = scratch
     met = torch.empty(8, dtype=torch.float32, device=dev)
     code = _library().qoc_mega_segment(
-        mats.data_ptr(), K, M, N, T, Tp, V, order, scaling, int(n_iters),
-        int(bool(unitary_mode)), psi0p.data_ptr(), target.data_ptr(),
-        maxamp.data_ptr(), u0rows.data_ptr(), u.data_ptr(), m.data_ptr(),
-        v.data_ptr(), sf.data_ptr(), met.data_ptr(), an.data_ptr(),
-        sq.data_ptr(), tree.data_ptr(), bar.data_ptr(), g.data_ptr(),
-        b1, b2, float(1.0 - b1), float(1.0 - b2), eps,
-        float(np.log(b1)), float(np.log(b2)), rate_factor, conv_target,
-        min_grad, float(max_iterations), _stream(dev))
+        *_mega_args(mats, psi0p, target, maxamp, u0rows, u, m, v, sf, met,
+                    scratch, N, T, order, scaling, n_iters, unitary_mode, b1,
+                    b2, eps, rate_factor, conv_target, min_grad,
+                    max_iterations), _stream(dev))
     _raise_on(code, "mega_segment")
     LAUNCHES["mega_segment"] += 1
     return met
 
 
+def mega_segment_costs(mats, psi0p, target, maxamp, u0rows, u, m, v, sf, *,
+                       costs, N: int, T: int, order: int, scaling: int,
+                       n_iters: int, unitary_mode: bool, b1: float,
+                       b2: float, eps: float, rate_factor: float,
+                       conv_target: float, min_grad: float,
+                       max_iterations: float, scratch):
+    """Kernel 3, costs instance: as ``mega_segment`` with the penalties of
+    ``costs`` (``ops.mega.SegmentCosts``); ``scratch`` comes from
+    ``mega_costs_scratch``.  met[6] is loss + penalties."""
+    c = costs
+    dev = _check(mats, psi0p, target, maxamp, u0rows, u, m, v, sf, c.env,
+                 c.forb, c.dftc, c.dfts, c.dftct, c.dftst, *scratch)
+    K, M, _ = mats.shape
+    Tp = u.shape[1]
+    _check_shape(K, M, Tp)
+    V = psi0p.shape[1]
+    vmax = MAX_V_TRAJ if c.traj else MAX_V
+    if V > vmax:
+        raise ValueError(f"V={V} concerned vectors exceed {vmax}")
+    F = c.dftc.shape[1]
+    L = Tp.bit_length() - 1
+    sw, s2, spec, bar2 = scratch[5:]
+    if (c.env.shape != (K - 1, Tp) or c.forb.shape[-1] != 1 + 2 * M
+            or c.dftct.shape != (F, Tp) or spec.numel() < 2 * (K - 1) * F
+            or (c.traj and (scratch[2].shape[0] < L + 1
+                            or bar2.shape != (M, M, Tp)))):
+        raise ValueError("segment cost operands do not match the problem")
+    met = torch.empty(8, dtype=torch.float32, device=dev)
+    args = CostArgs(
+        c.env.data_ptr(), c.forb.data_ptr(), c.dftc.data_ptr(),
+        c.dfts.data_ptr(), c.dftct.data_ptr(), c.dftst.data_ptr(),
+        sw.data_ptr(), s2.data_ptr(), spec.data_ptr(), bar2.data_ptr(),
+        c.forb.shape[0], F, int(c.traj), c.a_amp, c.a_env, c.a_dwdt,
+        c.a_d2, c.inv_dt, c.a_bp, c.a_spd, c.spd_c0, c.forb_c0)
+    code = _library().qoc_mega_segment_costs(
+        *_mega_args(mats, psi0p, target, maxamp, u0rows, u, m, v, sf, met,
+                    scratch, N, T, order, scaling, n_iters, unitary_mode, b1,
+                    b2, eps, rate_factor, conv_target, min_grad,
+                    max_iterations), ctypes.byref(args), _stream(dev))
+    _raise_on(code, "mega_segment_costs")
+    LAUNCHES["mega_segment_costs"] += 1
+    return met
+
+
 def mega_scratch(K: int, M: int, Tp: int, order: int, scaling: int,
                  dev: torch.device):
-    """(an, sq, tree, bar, g) scratch of the segment kernel."""
+    """(an, sq, tree, bar, g) scratch of the fidelity-only instance."""
     shapes = residual_shapes(M, Tp, order, scaling) + ((M, M, Tp),
                                                        (K - 1, Tp))
+    return tuple(torch.empty(s, dtype=torch.float32, device=dev)
+                 for s in shapes)
+
+
+def mega_costs_scratch(K: int, M: int, Tp: int, order: int, scaling: int,
+                       F: int, traj: bool, dev: torch.device):
+    """(an, sq, tree, bar, g, sw, s2, spec, bar2) scratch of the costs
+    instance; trajectory mode keeps L+1 scan levels and a second
+    cotangent buffer."""
+    an, sq, tree = residual_shapes(M, Tp, order, scaling)
+    if traj:
+        tree = (tree[0] + 1,) + tree[1:]
+    shapes = (an, sq, tree, (M, M, Tp), (K - 1, Tp), (K - 1, Tp),
+              (K - 1, Tp), (max(K - 1, 1), max(F, 1), 2),
+              (M, M, Tp) if traj else (1,))
     return tuple(torch.empty(s, dtype=torch.float32, device=dev)
                  for s in shapes)

@@ -10,6 +10,8 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+from .models.forward import INTER_VEC_COSTS
+from .ops._cuda import MAX_V, MAX_V_TRAJ
 from .ops.tree_chain import tree_chain_supported
 
 
@@ -27,22 +29,25 @@ def fused_fallback_reasons(problem, reg_coeffs: Optional[dict],
                            gradient_mode: str = "exact",
                            on_accel: bool = True) -> list:
     """Why the fused segment kernel (ops.mega.mega_supported) was passed
-    over, phrased for the user."""
+    over, phrased for the user; mirrors qoc_tpu's reasons."""
+    rc = reg_coeffs or {}
     reasons = []
     if not on_accel:
         reasons.append("cpu device (the fused kernels need a CUDA device)")
     if gradient_mode != "exact":
         reasons.append(
             f"gradient_mode={gradient_mode!r} (fused kernels are exact-grad)")
-    if reg_coeffs:
-        reasons.append("penalties (reg_coeffs) are not in the CUDA segment "
-                       "kernel yet")
     V = problem.initial_vectors.shape[1]
-    if V > 16:
+    traj = [k for k in INTER_VEC_COSTS if k in rc]
+    vmax = MAX_V_TRAJ if traj else MAX_V
+    if V > vmax:
         reasons.append(f"V={V} concerned vectors exceed the segment "
-                       "kernel's 16")
+                       f"kernel's {vmax}")
+    if traj and not problem.use_inter_vecs:
+        reasons.append("trajectory costs (%s) with use_inter_vecs=False"
+                       % ", ".join(traj))
     M = 2 * problem.state_num
     if not tree_chain_supported(M, problem.steps):
         reasons.append(f"dim {M} x {problem.steps} steps exceeds the tree "
                        "chain's admission rule")
-    return reasons or ["unsupported combination for the fused kernels"]
+    return reasons or ["unsupported cost combination for the fused kernels"]

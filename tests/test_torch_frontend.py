@@ -121,8 +121,10 @@ def test_problem_tensors_are_float32_copies():
     args, kwargs = _gate()
     p = TorchProblem.build(*args, **kwargs)
     tens = problem_tensors(p, "cpu")
+    assert p.v_sorted_iso is None   # undressed: no dressed rotation
     assert set(tens) == {"mats", "U0_iso", "initial_vectors",
-                         "target_vectors", "ops_max_amp", "u0_base"}
+                         "target_vectors", "ops_max_amp", "u0_base",
+                         "one_minus_gauss"}
     for name, x in tens.items():
         assert x.dtype == torch.float32 and x.device.type == "cpu"
         np.testing.assert_array_equal(x.numpy(), getattr(p, name))

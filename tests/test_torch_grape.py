@@ -1,8 +1,9 @@
 """qoc_tpu_torch.Grape end to end on the CPU against qoc_tpu.Grape: the pi
 pulse and the Taylor-[6, 2] gate through the scan engine and through the
 fused segment (plain version on the CPU, interpreted Pallas kernel in
-qoc_tpu), h5 run files that qoc_tpu's verifier accepts, and the parts not
-ported yet raising instead of running."""
+qoc_tpu), with and without penalties, h5 run files that qoc_tpu's
+verifier accepts, and the parts not ported yet raising instead of
+running."""
 
 import numpy as np
 import pytest
@@ -105,13 +106,85 @@ def test_save_without_h5py_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    {"reg_coeffs": {"amplitude": 0.1}},
     {"method": "L-BFGS-B"},
     {"resume_from": "run.h5"},
     {"gradient_mode": "reference"},
-], ids=["reg_coeffs", "lbfgsb", "resume", "reference_gradient"])
+], ids=["lbfgsb", "resume", "reference_gradient"])
 def test_unported_parts_raise(extra):
     args, kwargs = _pi_pulse()
     with pytest.raises(NotImplementedError):
         qt.Grape(*args, convergence=CONV, save=False, show_plots=False,
                  device="cpu", **kwargs, **extra)
+
+
+def _leakage_gate():
+    """3-level transmon X gate with a forbidden leakage level (the shape of
+    BASELINE config 3, cut to 3 levels and 24 steps)."""
+    n = 3
+    a = q.annihilate(n)
+    H0 = np.diag([0.0, 0.0, -0.2]) * 2 * np.pi
+    return ((H0, [a + a.conj().T, 1j * (a - a.conj().T)], ["x", "y"],
+             q.transmon_gate(q.SIGMA_X, n), 3.0, 24, [0, 1]),
+            dict(maxA=[1.0, 1.0], seed=0))
+
+
+GRAPE_COSTS = {
+    "leakage": (_leakage_gate, {"forbidden_coeff_list": [10.0],
+                                "states_forbidden_list": [2],
+                                "dwdt": 0.001}),
+    "pi_pulse_shape": (_pi_pulse, {"amplitude": 0.05, "envelope": 0.02,
+                                   "d2wdt2": 1e-6}),
+}
+
+
+@pytest.mark.parametrize("engine", ["scan", "mega"])
+@pytest.mark.parametrize("case", list(GRAPE_COSTS))
+def test_grape_with_penalties_matches_qoc_tpu(case, engine):
+    make, rc = GRAPE_COSTS[case]
+    args, kwargs = make()
+    common = dict(convergence=CONV, save=False, show_plots=False,
+                  engine=engine, reg_coeffs=rc, **kwargs)
+    want = q.Grape(*args, **common)
+    got = qt.Grape(*args, device="cpu", **common)
+    assert got.iterations == want.iterations
+    assert got.reg_loss > got.loss + 1e-4   # the penalties are on
+    np.testing.assert_allclose(got.loss, want.loss, atol=2e-5)
+    np.testing.assert_allclose(got.reg_loss, want.reg_loss, atol=2e-5)
+    np.testing.assert_allclose(got.uks, np.asarray(want.uks), atol=1e-4)
+    np.testing.assert_allclose(got.fidelity_f64, want.fidelity_f64,
+                               atol=2e-5)
+    np.testing.assert_allclose(got.history.reg_costs,
+                               np.asarray(want.history.reg_costs), atol=2e-5)
+
+
+def test_penalty_routing_on_cpu(capsys):
+    args, kwargs = _leakage_gate()
+    rc = GRAPE_COSTS["leakage"][1]
+    common = dict(convergence=dict(CONV, max_iterations=2), save=False,
+                  show_plots=False, device="cpu", reg_coeffs=rc, **kwargs)
+    assert qt.Grape(*args, engine="mega", **common).engine == (
+        "mega (plain torch segment reference on cpu, penalties: "
+        "forbidden, dwdt)")
+    assert qt.Grape(*args, **common).engine == "scan"
+    out = capsys.readouterr().out
+    assert "[qoc-tpu-torch] engine: scan (fallback: cpu device" in out
+    with pytest.raises(KeyError, match="did you mean 'dwdt'"):
+        qt.Grape(*args, **dict(common, reg_coeffs={"dwdtt": 0.1}))
+    with pytest.raises(ValueError, match="states_forbidden_list"):
+        qt.Grape(*args, **dict(common, reg_coeffs={
+            "forbidden_coeff_list": [1.0], "states_forbidden_list": [3]}))
+
+
+def test_saved_run_records_reg_error(tmp_path):
+    import h5py
+
+    args, kwargs = _leakage_gate()
+    res = qt.Grape(*args, convergence=CONV, save=True, show_plots=False,
+                   file_name="leakage", data_path=str(tmp_path),
+                   device="cpu", reg_coeffs=GRAPE_COSTS["leakage"][1],
+                   **kwargs)
+    with h5py.File(res.file_path, "r") as hf:
+        err = np.array(hf["error"])
+        reg = np.array(hf["reg_error"])
+    assert np.all(reg > err)
+    np.testing.assert_allclose(reg[-1], res.reg_loss, rtol=1e-6)
