@@ -68,3 +68,70 @@ def adam_state_to_numpy(state: AdamState, steps: int):
 
     return (host(state.u_base), host(state.m), host(state.v),
             np.int32(state.iteration), np.float32(state.lr))
+
+
+def batch_state_from_numpy(u, mu, nu, count, lr, iteration: int = 0,
+                           done=None, device="cpu"):
+    """A ``parallel.batch.BatchState`` of the per-iteration backends from
+    the leaves of qoc_tpu's vmapped optax state: u [S, K, T], mu/nu (the
+    ScaleByAdamState moments), count [S] and lr [S] (the decay state's
+    ``{"lr": ...}``), the global ``iteration`` and the frozen flags."""
+    from .optim.adam import BatchAdamState
+    from .parallel.batch import BatchState
+
+    device = torch.device(device)
+
+    def dev(x):
+        return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
+
+    u = dev(u)
+    S = u.shape[0]
+    inf = torch.full((S,), float("inf"), device=device)
+    done = (torch.zeros(S, dtype=torch.bool, device=device) if done is None
+            else torch.as_tensor(np.array(done, dtype=bool), device=device))
+    opt = BatchAdamState(
+        mu=dev(mu), nu=dev(nu),
+        count=torch.as_tensor(np.array(count, dtype=np.int32),
+                              device=device),
+        lr=dev(lr))
+    return BatchState(u_base=u, opt_state=opt, iteration=int(iteration),
+                      loss=inf, reg_loss=inf, grad_squared=inf, done=done)
+
+
+def batch_state_to_numpy(state):
+    """(u, mu, nu, count, lr) of a per-iteration BatchState as numpy."""
+    opt = state.opt_state
+    return tuple(x.detach().cpu().numpy() for x in (
+        state.u_base, opt.mu, opt.nu, opt.count, opt.lr))
+
+
+_MEGA_FIELDS = ("u_cols", "m_cols", "v_cols", "it_cols", "done_cols")
+_MEGA_METRICS = ("losses", "grad_squared", "reg_losses")
+
+
+def mega_batch_state_from_numpy(state, device="cpu"):
+    """A ``parallel.mega_batch.MegaBatchState`` from any object with
+    qoc_tpu's MegaBatchState fields (u/m/v_cols [T, Kc, C], it_cols and
+    done_cols [1, C], iteration, losses, grad_squared, reg_losses)."""
+    from .parallel.mega_batch import MegaBatchState
+
+    device = torch.device(device)
+
+    def dev(x):
+        if x is None:
+            return None
+        return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
+
+    return MegaBatchState(
+        **{f: dev(getattr(state, f)) for f in _MEGA_FIELDS + _MEGA_METRICS},
+        iteration=int(state.iteration))
+
+
+def mega_batch_state_to_numpy(state) -> dict:
+    """The fields of a MegaBatchState as numpy, keyed as qoc_tpu's
+    ``MegaBatchState(**fields)`` takes them."""
+    out = {f: (None if getattr(state, f) is None
+               else getattr(state, f).detach().cpu().numpy())
+           for f in _MEGA_FIELDS + _MEGA_METRICS}
+    out["iteration"] = int(state.iteration)
+    return out

@@ -75,12 +75,16 @@ def make_forward(
         resolved_engine = pick_engine(2 * N, p.steps)
     ones = torch.ones((1, p.steps), dtype=torch.float32, device=device)
 
-    def forward(u_base: torch.Tensor) -> ForwardOutput:
+    def forward(u_base: torch.Tensor,
+                mats_in: Optional[torch.Tensor] = None) -> ForwardOutput:
+        """``mats_in`` overrides the problem's generators (the batch
+        layer's per-seed Hamiltonian sweep)."""
+        mats_ = mats if mats_in is None else mats_in
         ops_weight = torch.sin(u_base)   # hard |u| <= maxA bound (tensorflow_state.py:176)
         weights = torch.cat([ones, max_amp[:, None] * ops_weight])  # row 0 = drift
         if p.state_transfer:
             inter_vecs = state_transfer_chain(
-                mats, weights, psi0, p.taylor_terms,
+                mats_, weights, psi0, p.taylor_terms,
                 gradient_mode=gradient_mode, engine=engine,
                 final_only=not needs_inter)
             final_vecs = inter_vecs[-1]
@@ -92,11 +96,11 @@ def make_forward(
         else:
             if resolved_engine == "tree" and not needs_inter:
                 final_U = evolve_unitary_tree(
-                    mats, weights, U0, p.taylor_terms, p.taylor_scaling)
+                    mats_, weights, U0, p.taylor_terms, p.taylor_scaling)
                 inter_vecs = None
             else:
                 final_U, inter_vecs = evolve_unitary(
-                    mats, weights, U0, psi0, p.taylor_terms,
+                    mats_, weights, U0, psi0, p.taylor_terms,
                     p.taylor_scaling, gradient_mode=gradient_mode,
                     engine=resolved_engine, use_inter_vecs=needs_inter)
             final_vecs = torch.matmul(final_U, psi0)
@@ -114,8 +118,8 @@ def make_forward(
         return ForwardOutput(loss, reg_loss, unitary_scale, final_state,
                              inter_vecs, ops_weight)
 
-    def loss_fn(u_base: torch.Tensor):
-        out = forward(u_base)
+    def loss_fn(u_base: torch.Tensor, mats_in: Optional[torch.Tensor] = None):
+        out = forward(u_base, mats_in)
         return out.reg_loss, out
 
     forward.resolved_engine = resolved_engine

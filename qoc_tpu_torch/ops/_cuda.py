@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels (``qoc_tpu_torch/csrc``).
 
-``nvcc`` compiles ``csrc/tree_chain.cu``, ``csrc/mega.cu`` and
-``csrc/mega_costs.cu`` for ``sm_90a`` (one process per source, all
+``nvcc`` compiles each source of ``SOURCES`` (the tree chain, the fused
+segment's two instances, the state chain, and the fused batched
+optimizer's two instances) for ``sm_90a`` (one process per source, all
 started together), then links them into one shared library with a plain
 C interface, loaded with ctypes.  The build runs at the first launch,
 never at import, into ``<repo>/.torch_ext_build/<hash of sources and
@@ -29,8 +30,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / ".torch_ext_build"
-SOURCES = ("tree_chain.cu", "mega.cu", "mega_costs.cu")
-HEADERS = ("tree_chain.cuh", "mega.cuh")
+SOURCES = ("tree_chain.cu", "mega.cu", "mega_costs.cu", "state_chain.cu",
+           "mega_batch.cu", "mega_batch_costs.cu")
+HEADERS = ("tree_chain.cuh", "mega.cuh", "state_chain.cuh", "mega_batch.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -39,10 +41,14 @@ SUPPORTED_M = (2, 4, 6, 8, 10, 12)
 SMEM_LIMIT = 48 * 1024     # the kernels' dynamic shared memory (mats)
 MAX_V = 16                 # kMaxV in mega.cuh
 MAX_V_TRAJ = 8             # kMaxVTraj in mega.cuh (trajectory mode)
+MAX_K = 16                 # kMaxK in state_chain.cuh (generators per step)
+MAX_V_BATCH = 8            # kMaxVBatch in mega_batch.cuh
 
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES = {"tree_forward": 0, "tree_backward": 0, "mega_segment": 0,
-            "mega_segment_costs": 0}
+            "mega_segment_costs": 0, "state_chain_forward": 0,
+            "state_chain_backward": 0, "mega_batch_segment": 0,
+            "mega_batch_segment_costs": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -60,6 +66,26 @@ class CostArgs(ctypes.Structure):
                 + [(n, _F) for n in ("a_amp", "a_env", "a_dwdt", "a_d2",
                                       "inv_dt", "a_bp", "a_spd", "spd_c0",
                                       "forb_c0")])
+
+
+class BatchAdam(ctypes.Structure):
+    """Mirror of ``qoc::BatchAdam`` (mega_batch.cuh)."""
+
+    _fields_ = [(n, _F) for n in ("b1", "b2", "one_minus_b1", "one_minus_b2",
+                                  "eps", "ln_b1", "ln_b2", "ln_f", "rate",
+                                  "conv_target", "min_grad",
+                                  "max_iterations")]
+
+
+class BatchCostArgs(ctypes.Structure):
+    """Mirror of ``qoc::BatchCostArgs`` (mega_batch.cuh), field for field."""
+
+    _fields_ = ([(n, _P) for n in ("env2", "forb", "dftc", "dfts", "spec",
+                                    "ov")]
+                + [(n, _I) for n in ("nforb", "F")]
+                + [(n, _F) for n in ("a_amp", "a_env", "a_dwdt", "c_dwdt",
+                                      "a_d2", "c_d2", "inv_dt", "idt2",
+                                      "a_bp", "a_spd", "spd_c0", "forb_c0")])
 
 
 def reset_launch_counts() -> None:
@@ -133,10 +159,23 @@ def _library():
             lib.qoc_mega_segment.argtypes = mega + [_P]
             lib.qoc_mega_segment_costs.argtypes = mega + [
                 ctypes.POINTER(CostArgs), _P]
+            lib.qoc_state_chain_forward.argtypes = ([_P] * 3 + [_I] * 6
+                                                    + [_P] * 3)
+            lib.qoc_state_chain_backward.argtypes = ([_P] * 4 + [_I] * 6
+                                                     + [_P] * 4)
+            batch = ([_P] + [_I] * 9 + [_P] * 15
+                     + [ctypes.POINTER(BatchAdam)])
+            lib.qoc_mega_batch_segment.argtypes = batch + [_P]
+            lib.qoc_mega_batch_segment_costs.argtypes = batch + [
+                ctypes.POINTER(BatchCostArgs), _P]
             lib.qoc_error_string.argtypes = [_I]
             lib.qoc_error_string.restype = ctypes.c_char_p
             for fn in (lib.qoc_tree_forward, lib.qoc_tree_backward,
-                       lib.qoc_mega_segment, lib.qoc_mega_segment_costs):
+                       lib.qoc_mega_segment, lib.qoc_mega_segment_costs,
+                       lib.qoc_state_chain_forward,
+                       lib.qoc_state_chain_backward,
+                       lib.qoc_mega_batch_segment,
+                       lib.qoc_mega_batch_segment_costs):
                 fn.restype = _I
             _lib = lib
     return _lib
@@ -330,3 +369,145 @@ def mega_costs_scratch(K: int, M: int, Tp: int, order: int, scaling: int,
               (M, M, Tp) if traj else (1,))
     return tuple(torch.empty(s, dtype=torch.float32, device=dev)
                  for s in shapes)
+
+
+def chain_fits(K: int, M: int) -> bool:
+    """The bounds of the chain kernels (state chain and batched optimizer):
+    M compiled, at most ``MAX_K`` generators per step, and the generators
+    within the kernels' shared-memory copy."""
+    return M in SUPPORTED_M and K <= MAX_K and K * M * M * 4 <= SMEM_LIMIT
+
+
+def _check_chain(K: int, M: int) -> None:
+    if not chain_fits(K, M):
+        raise ValueError(
+            f"{K} generators of {M}x{M} are outside the chain kernels' bounds"
+            f" (M in {SUPPORTED_M}, at most {MAX_K} generators within "
+            f"{SMEM_LIMIT} bytes of shared memory)")
+
+
+def state_chain_forward(mats, w, psi0, order: int, scaling: int):
+    """Kernel 4: mats [K, M, M], w [T, K, C], psi0 [M, C] -> (psi_T [M, C],
+    trajectory [T+1, M, C])."""
+    dev = _check(mats, w, psi0)
+    K, M, _ = mats.shape
+    T, Kw, C = w.shape
+    _check_chain(K, M)
+    if Kw != K or tuple(psi0.shape) != (M, C) or order < 1 or C < 1:
+        raise ValueError("state chain operands do not match: mats "
+                         f"{tuple(mats.shape)}, w {tuple(w.shape)}, psi0 "
+                         f"{tuple(psi0.shape)}, order {order}")
+    out = torch.empty((M, C), dtype=torch.float32, device=dev)
+    traj = torch.empty((T + 1, M, C), dtype=torch.float32, device=dev)
+    code = _library().qoc_state_chain_forward(
+        mats.data_ptr(), w.data_ptr(), psi0.data_ptr(), K, M, T, C, order,
+        scaling, out.data_ptr(), traj.data_ptr(), _stream(dev))
+    _raise_on(code, "state_chain_forward")
+    LAUNCHES["state_chain_forward"] += 1
+    return out, traj
+
+
+def state_chain_backward(mats, w, traj, gbar, order: int, scaling: int):
+    """Kernel 5: the forward's operands and trajectory, gbar [M, C] (the
+    cotangent of psi_T) -> (wbar [T, K, C], psibar [M, C])."""
+    dev = _check(mats, w, traj, gbar)
+    K, M, _ = mats.shape
+    T, Kw, C = w.shape
+    _check_chain(K, M)
+    if (Kw != K or tuple(traj.shape) != (T + 1, M, C)
+            or tuple(gbar.shape) != (M, C) or order < 1):
+        raise ValueError("state chain operands do not match the forward's")
+    ps = torch.empty(((1 << scaling) * order, M, C), dtype=torch.float32,
+                     device=dev)
+    wbar = torch.empty((T, K, C), dtype=torch.float32, device=dev)
+    psibar = torch.empty((M, C), dtype=torch.float32, device=dev)
+    code = _library().qoc_state_chain_backward(
+        mats.data_ptr(), w.data_ptr(), traj.data_ptr(), gbar.data_ptr(), K, M,
+        T, C, order, scaling, ps.data_ptr(), wbar.data_ptr(),
+        psibar.data_ptr(), _stream(dev))
+    _raise_on(code, "state_chain_backward")
+    LAUNCHES["state_chain_backward"] += 1
+    return wbar, psibar
+
+
+def mega_batch_scratch(M: int, T: int, Kc: int, C: int, order: int,
+                       scaling: int, dev: torch.device):
+    """(traj, sn, wbar, gs, ps) scratch of kernel 6 for C columns."""
+    shapes = ((T + 1, M, C), (T, Kc, C), (T, Kc, C), (T, Kc, C),
+              ((1 << scaling) * order, M, C))
+    return tuple(torch.empty(s, dtype=torch.float32, device=dev)
+                 for s in shapes)
+
+
+def mega_batch_costs_scratch(T: int, Kc: int, C: int, F: int,
+                             dev: torch.device):
+    """(spec, ov) scratch of kernel 6's costs instance."""
+    return (torch.empty((max(Kc * F, 1), 2, C), dtype=torch.float32,
+                        device=dev),
+            torch.empty((T + 1, 2, C), dtype=torch.float32, device=dev))
+
+
+def mega_batch_segment(mats, maxamp, psi0, tgt, ew, u, m, v, itc, done, *,
+                       order: int, scaling: int, n_iters: int, adam: dict,
+                       scratch, costs=None, cost_scratch=None):
+    """Kernel 6: ``n_iters`` Adam iterations for every seed in one launch.
+
+    mats [K, M, M] (drift, Kc controls, E extra channels), maxamp [Kc],
+    psi0 / tgt [M, V], ew [E, C] (a dummy [1, C] when E = 0); u, m, v
+    [T, Kc, C] and itc, done [1, C] are updated IN PLACE.  ``adam`` holds
+    the ``BatchAdam`` fields, ``scratch`` comes from ``mega_batch_scratch``.
+    With ``costs`` (``parallel.mega_batch.BatchCosts``) the costs instance
+    runs, with ``cost_scratch`` from ``mega_batch_costs_scratch``.  Returns
+    stats [3, C] = (loss, grad^2, reg_loss) per column."""
+    tensors = [mats, maxamp, psi0, tgt, ew, u, m, v, itc, done, *scratch]
+    if costs is not None:
+        tensors += [costs.env2, costs.forb, costs.dftc, costs.dfts,
+                    *cost_scratch]
+    dev = _check(*tensors)
+    K, M, _ = mats.shape
+    T, Kc, C = u.shape
+    V = psi0.shape[1]
+    _check_chain(K, M)
+    if V > MAX_V_BATCH or C % V:
+        raise ValueError(f"V={V} concerned vectors (at most {MAX_V_BATCH}, "
+                         f"dividing the {C} columns)")
+    traj, sn, wbar, gs, ps = scratch
+    E = K - 1 - Kc
+    if (E < 0 or (E and ew.shape[0] != E) or ew.shape[1] != C
+            or tuple(psi0.shape) != (M, V) or tuple(tgt.shape) != (M, V)
+            or tuple(traj.shape) != (T + 1, M, C)
+            or ps.shape[0] < (1 << scaling) * order
+            or tuple(maxamp.shape) != (Kc,) or n_iters < 1 or order < 1):
+        raise ValueError("batched segment operands do not match the problem")
+    stats = torch.empty((3, C), dtype=torch.float32, device=dev)
+    args = [mats.data_ptr(), K, M, Kc, V, T, C, order, scaling, int(n_iters),
+            maxamp.data_ptr(), psi0.data_ptr(), tgt.data_ptr(),
+            ew.data_ptr(), u.data_ptr(), m.data_ptr(), v.data_ptr(),
+            itc.data_ptr(), done.data_ptr(), stats.data_ptr(),
+            traj.data_ptr(), sn.data_ptr(), wbar.data_ptr(), gs.data_ptr(),
+            ps.data_ptr(), ctypes.byref(BatchAdam(**adam))]
+    lib = _library()
+    if costs is None:
+        code = lib.qoc_mega_batch_segment(*args, _stream(dev))
+        name = "mega_batch_segment"
+    else:
+        c = costs
+        spec, ov = cost_scratch
+        F = c.dftc.shape[1]
+        if (spec.shape[0] < Kc * F or tuple(ov.shape) != (T + 1, 2, C)
+                or c.forb.shape[-1] != 1 + 2 * M
+                or tuple(c.env2.shape) != (T, Kc)):
+            raise ValueError("batched segment cost operands do not match "
+                             "the problem")
+        ca = BatchCostArgs(
+            c.env2.data_ptr(), c.forb.data_ptr(), c.dftc.data_ptr(),
+            c.dfts.data_ptr(), spec.data_ptr(), ov.data_ptr(),
+            c.forb.shape[0], F, c.a_amp, c.a_env, c.a_dwdt, c.c_dwdt,
+            c.a_d2, c.c_d2, c.inv_dt, c.idt2, c.a_bp, c.a_spd, c.spd_c0,
+            c.forb_c0)
+        code = lib.qoc_mega_batch_segment_costs(*args, ctypes.byref(ca),
+                                                _stream(dev))
+        name = "mega_batch_segment_costs"
+    _raise_on(code, name)
+    LAUNCHES[name] += 1
+    return stats

@@ -157,6 +157,30 @@ class SegmentCosts(NamedTuple):
     total_time: float
 
 
+def bandpass_angles(problem, reg_coeffs):
+    """(a_bp, ang [T, F]): the bandpass coefficient / steps (0 when no bin
+    is penalized) and the float64 DFT angles 2 pi t f / T of the
+    penalized bins."""
+    T = problem.steps
+    a_bp = float(reg_coeffs.get("bandpass", 0.0)) / T
+    bins = _bandpass_bins(problem, reg_coeffs) if a_bp else np.zeros(0)
+    if bins.size == 0:
+        a_bp = 0.0
+    return a_bp, 2.0 * np.pi * np.arange(T)[:, None] * bins[None, :] / float(T)
+
+
+def speed_up_c0(problem) -> float:
+    """speed_up's constant t = 0 term |<psi0|target>|^2 / V^2 in float64;
+    inter_vecs[0] is the RAW initial vectors in both modes
+    (tensorflow_state.py:230-236)."""
+    iv0 = np.asarray(problem.initial_vectors, dtype=np.float64)
+    tv = np.asarray(problem.target_vectors, dtype=np.float64)
+    Nc = problem.state_num
+    re0 = float(np.sum(iv0[:Nc] * tv[:Nc]) + np.sum(iv0[Nc:] * tv[Nc:]))
+    im0 = float(np.sum(iv0[Nc:] * tv[:Nc]) - np.sum(iv0[:Nc] * tv[Nc:]))
+    return (re0 * re0 + im0 * im0) / float(iv0.shape[1] ** 2)
+
+
 def segment_costs(problem, reg_coeffs, device) -> Optional[SegmentCosts]:
     """The cost statics of ``pallas_mega.make_mega_segment_runner``
     (:496-577) as tensors on ``device``; None for the fidelity-only
@@ -173,25 +197,14 @@ def segment_costs(problem, reg_coeffs, device) -> Optional[SegmentCosts]:
         return torch.as_tensor(np.ascontiguousarray(x, dtype=np.float32),
                                device=device)
 
-    a_bp = float(rc.get("bandpass", 0.0)) / T
-    bins = _bandpass_bins(p, rc) if a_bp else np.zeros(0)
-    if bins.size == 0:
-        a_bp = 0.0
-    ang = 2.0 * np.pi * np.arange(T)[:, None] * bins[None, :] / float(T)
-    dftc = np.zeros((Tp, bins.size))
-    dfts = np.zeros((Tp, bins.size))
+    a_bp, ang = bandpass_angles(p, rc)
+    dftc = np.zeros((Tp, ang.shape[1]))
+    dfts = np.zeros((Tp, ang.shape[1]))
     dftc[:T] = np.cos(ang)
     dfts[:T] = np.sin(ang)
 
     a_spd = float(rc.get("speed_up", 0.0)) / T
-    spd_c0 = 0.0
-    if a_spd:
-        iv0 = np.asarray(p.initial_vectors, dtype=np.float64)
-        tv = np.asarray(p.target_vectors, dtype=np.float64)
-        Nc = p.state_num
-        re0 = float(np.sum(iv0[:Nc] * tv[:Nc]) + np.sum(iv0[Nc:] * tv[Nc:]))
-        im0 = float(np.sum(iv0[Nc:] * tv[:Nc]) - np.sum(iv0[:Nc] * tv[Nc:]))
-        spd_c0 = (re0 * re0 + im0 * im0) / float(iv0.shape[1] ** 2)
+    spd_c0 = speed_up_c0(p) if a_spd else 0.0
 
     forb, forb_c0 = forbidden_static(p, rc)
     env = np.pad(np.asarray(p.one_minus_gauss, dtype=np.float32),

@@ -10,6 +10,13 @@ Adam is TF1's (beta1 0.9, beta2 0.999, eps 1e-8, bias-corrected moments);
 the learning rate ``rate * exp(-iter / decay)`` is carried as state and
 multiplied by exp(-1/decay) after every applied step.  The fused segment
 kernel (``ops.mega``) shares this state type.
+
+``batched_adam_update`` is the same Adam for a population of seeds (the
+batch layer's per-iteration backends): qoc_tpu vmaps
+``make_adam_optimizer``'s optax chain (``scale_by_adam`` with its count,
+the carried learning rate, the scale by -1) over the seed axis and masks
+the update of frozen seeds (qoc_tpu/parallel/batch.py:221-230); here the
+seed axis is written out.
 """
 
 from __future__ import annotations
@@ -46,6 +53,48 @@ def init_adam_state(u_base: torch.Tensor, conv: ConvergenceSettings
         loss=float("inf"), reg_loss=float("inf"),
         grad_squared=float("inf"), unitary_scale=0.0, done=False,
     )
+
+
+class BatchAdamState(NamedTuple):
+    """Per-seed optax Adam state: the leaves of qoc_tpu's vmapped
+    (ScaleByAdamState(count, mu, nu), {"lr": lr}, EmptyState())."""
+
+    mu: torch.Tensor       # [S, K, T] first moment
+    nu: torch.Tensor       # [S, K, T] second moment
+    count: torch.Tensor    # [S] int32 applied updates
+    lr: torch.Tensor       # [S] float32 learning rate
+
+
+def init_batch_adam(u_bases: torch.Tensor,
+                    conv: ConvergenceSettings) -> BatchAdamState:
+    S = u_bases.shape[0]
+    return BatchAdamState(
+        mu=torch.zeros_like(u_bases), nu=torch.zeros_like(u_bases),
+        count=torch.zeros(S, dtype=torch.int32, device=u_bases.device),
+        lr=torch.full((S,), float(np.float32(conv.rate)),
+                      dtype=u_bases.dtype, device=u_bases.device))
+
+
+def batched_adam_update(u: torch.Tensor, state: BatchAdamState,
+                        g: torch.Tensor, frozen: torch.Tensor,
+                        factor: float):
+    """One optax Adam step per seed; a seed with ``frozen`` [S] set keeps
+    u, mu, nu, its count and its learning rate.  ``factor`` is the
+    learning-rate decay exp(-1/decay).  Returns (u, state)."""
+    count = state.count + 1
+    mu = (1.0 - B1) * g + B1 * state.mu
+    nu = (1.0 - B2) * (g * g) + B2 * state.nu
+    bc1 = (1.0 - B1 ** count.to(u.dtype))[:, None, None]
+    bc2 = (1.0 - B2 ** count.to(u.dtype))[:, None, None]
+    upd = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
+    u_new = u - state.lr[:, None, None] * upd
+    keep = frozen[:, None, None]
+    return (torch.where(keep, u, u_new),
+            BatchAdamState(
+                mu=torch.where(keep, state.mu, mu),
+                nu=torch.where(keep, state.nu, nu),
+                count=torch.where(frozen, state.count, count),
+                lr=torch.where(frozen, state.lr, state.lr * factor)))
 
 
 def make_segment_runner(loss_fn: Callable, conv: ConvergenceSettings):

@@ -1,8 +1,8 @@
 """Engine routing announcements (port of ``qoc_tpu.routing``).
 
-Every Grape run prints ONE line naming the engine it landed on and, when
-the fused segment kernel was passed over, why.  ``QOC_TPU_QUIET=1``
-silences it, as in qoc_tpu.
+Every Grape run and every batched run prints ONE line naming the engine
+(or batch backend) it landed on and, when a fused kernel was passed over,
+why.  ``QOC_TPU_QUIET=1`` silences it, as in qoc_tpu.
 """
 
 from __future__ import annotations
@@ -11,7 +11,8 @@ import os
 from typing import Optional
 
 from .models.forward import INTER_VEC_COSTS
-from .ops._cuda import MAX_V, MAX_V_TRAJ
+from .ops._cuda import (MAX_K, MAX_V, MAX_V_TRAJ, SMEM_LIMIT,
+                        SUPPORTED_M, chain_fits)
 from .ops.tree_chain import tree_chain_supported
 
 
@@ -27,9 +28,14 @@ def announce(kind: str, choice: str, reasons=None) -> str:
 
 def fused_fallback_reasons(problem, reg_coeffs: Optional[dict],
                            gradient_mode: str = "exact",
+                           sweep_mats: bool = False,
                            on_accel: bool = True) -> list:
-    """Why the fused segment kernel (ops.mega.mega_supported) was passed
-    over, phrased for the user; mirrors qoc_tpu's reasons."""
+    """Why the fused kernels were passed over, phrased for the user:
+    the single-problem segment kernel (``ops.mega.mega_supported``) and
+    the batch layer's kernels (``parallel.mega_batch.
+    batched_mega_supported``, ``parallel.chain_batch.
+    pallas_batch_supported``); mirrors qoc_tpu's reasons, with the CUDA
+    kernels' bounds where qoc_tpu names its VMEM budget."""
     rc = reg_coeffs or {}
     reasons = []
     if not on_accel:
@@ -37,17 +43,27 @@ def fused_fallback_reasons(problem, reg_coeffs: Optional[dict],
     if gradient_mode != "exact":
         reasons.append(
             f"gradient_mode={gradient_mode!r} (fused kernels are exact-grad)")
+    if sweep_mats:
+        reasons.append("per-seed generator sweep (mats_batch)")
     V = problem.initial_vectors.shape[1]
     traj = [k for k in INTER_VEC_COSTS if k in rc]
     vmax = MAX_V_TRAJ if traj else MAX_V
     if V > vmax:
-        reasons.append(f"V={V} concerned vectors exceed the segment "
-                       f"kernel's {vmax}")
+        # the segment kernel takes V <= 16 (V <= 8 with trajectory costs);
+        # the batch kernels take V <= 8; xla-cols takes any V
+        reasons.append(f"V={V} concerned vectors exceed the fused "
+                       f"kernels' {vmax}")
     if traj and not problem.use_inter_vecs:
         reasons.append("trajectory costs (%s) with use_inter_vecs=False"
                        % ", ".join(traj))
     M = 2 * problem.state_num
+    K = problem.ops_len + 1
     if not tree_chain_supported(M, problem.steps):
         reasons.append(f"dim {M} x {problem.steps} steps exceeds the tree "
-                       "chain's admission rule")
+                       "chain's admission rule (the CUDA kernels are built "
+                       f"for M in {SUPPORTED_M})")
+    elif not chain_fits(K, M):
+        reasons.append(f"{K} generators of {M}x{M} exceed the batch CUDA "
+                       f"kernels' bounds (at most {MAX_K}, within "
+                       f"{SMEM_LIMIT} bytes of shared memory)")
     return reasons or ["unsupported cost combination for the fused kernels"]
