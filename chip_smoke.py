@@ -36,11 +36,23 @@ Phases (each prints one line with its numbers; any failed check raises):
      routed to kernel 6) on the pi pulse at 512 seeds
      (examples/05_pod_scale_sweep.py's first program, without its mesh),
      the CNOT and config 3 at 64 seeds, and ``backend="pallas"`` (kernels
-     4 and 5) on the pi pulse at 256 seeds; launch counts as in phase 4.
+     4 and 5) on the pi pulse at 256 seeds; launch counts as in phase 4;
+  8. the pscan and associative engines on the transmon-cavity job
+     (examples/jobs/transmon_cavity.json, BASELINE config 4: M = 120,
+     T = 1000): 8a the batched Taylor kernels 7 and 8 against their plain
+     versions at config 4's generators and at M = 32 (T = 7), 256 and 512;
+     8b pscan, associative and scan at config 4's iteration 0, and the
+     pscan iteration in parts; 8c ``Grape`` on the job, ``engine="auto"``
+     (routed to pscan, kernel 7), its 5000 iterations; 8d the same with
+     ``engine="associative"`` (kernels 7 and 8), 20 iterations.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
-script exits with code 2 and prints no result.
+Every kernel's entry in the kernels line carries its bound: the larger of
+its operations over 67 TFLOP/s (float32 outside the tensor cores) and its
+bytes over 3.35 TB/s, at the timed shape.  The second-to-last line is that
+JSON object; the last line is ``{"ok": true, "device": {...}}``.  Without
+a CUDA device the script exits with code 2 and prints no result.
+``--phases 8`` (or ``2-4``, ``5-7``, comma-separated) runs phase 1 and the
+groups named, and prints only their kernels.
 """
 
 from __future__ import annotations
@@ -52,6 +64,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -103,6 +116,39 @@ def _generators(K: int, M: int, T: int, rng) -> np.ndarray:
     return np.stack(out).astype(np.float32)
 
 
+def _on(dev, x: np.ndarray):
+    """A contiguous tensor on ``dev`` (``torch.tensor`` keeps a numpy
+    array's strides)."""
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+
+# the least time the card could take (NVIDIA's data sheet, H100 SXM at
+# 700 W): float32 outside the tensor cores, and HBM3
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def _bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by): the larger of the operations over the float32
+    peak and the bytes (each input read once, each output written once)
+    over the memory rate."""
+    ops_ms, mem_ms = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= mem_ms else (mem_ms, "bytes")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def chain_macs(T: int, C: int, K: int, M: int, order: int, scaling: int):
+    """Multiply-adds of one pass of C state columns through T steps: the
+    step generator sum_k w_k mats_k (K M^2) and 2^s * order Taylor
+    mat-vecs (M^2 each) per column and step."""
+    return T * C * (K + (1 << scaling) * order) * M * M
+
+
 def phase_tree(dev) -> dict:
     """Kernels 1 and 2 against the plain version, forward and gradient."""
     import torch
@@ -138,9 +184,21 @@ def phase_tree(dev) -> dict:
         worst["tree_backward"] = max(worst["tree_backward"], _abs(g_k, g_r))
 
         wp = _pad_lanes(w.detach()).contiguous()
-        _, an, sq, tree = _cuda.tree_forward(mats, wp, order, s)
+        E0, an, sq, tree = _cuda.tree_forward(mats, wp, order, s)
+        wbar = _cuda.tree_backward(mats, an, sq, tree, R, order, s)
+        # step generators, Taylor powers and squarings per step, and the
+        # T - 1 products of the tree; the backward: two products per tree
+        # node and per power or squaring, and the weight cotangent
+        fwd_macs = (T * (K * M * M + (order - 1 + s) * M ** 3)
+                    + (T - 1) * M ** 3)
+        bwd_macs = (2 * (T - 1) * M ** 3
+                    + T * (2 * (order - 1 + s) * M ** 3 + K * M * M))
+        fb, fby = _bound(2 * fwd_macs, _nbytes(mats, wp, E0, an, sq, tree))
+        bb, bby = _bound(2 * bwd_macs, _nbytes(mats, an, sq, tree, R, wbar))
         reps = 20
         t = dict(
+            fwd_bound_ms=fb, fwd_bound_by=fby, bwd_bound_ms=bb,
+            bwd_bound_by=bby,
             fwd_ms=_timed_ms(lambda: _cuda.tree_forward(mats, wp, order, s),
                              reps),
             fwd_plain_ms=_timed_ms(
@@ -225,6 +283,18 @@ def _build_problem(prob):
     return ControlProblem.build(*prob["args"], **kw)
 
 
+def _segment_bound(n: int, p, mats, psi0p, order: int, s: int, k) -> dict:
+    """Bound of ``n`` Adam iterations in one segment launch: per iteration
+    the forward of the V columns, the adjoint sweep and the gradient
+    pairing, each one chain pass (``chain_macs``); the pulse and Adam
+    moments read and written once."""
+    K, M, V = mats.shape[0], mats.shape[1], psi0p.shape[1]
+    macs = 3 * n * chain_macs(p.steps, V, K, M, order, s)
+    ms, by = _bound(2 * macs, _nbytes(mats, psi0p)
+                    + 2 * _nbytes(k.u_base, k.m, k.v))
+    return dict(bound_ms=ms, bound_by=by)
+
+
 def phase_mega(dev, problems) -> dict:
     """Kernel 3 against the plain segment, 100 iterations, full size."""
     import torch
@@ -278,11 +348,14 @@ def phase_mega(dev, problems) -> dict:
                                init(p.u0_base), n, **statics)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        out[name] = dict(u_err=u_err, seg_ms=seg_ms, plain_ms=plain_ms)
+        out[name] = dict(u_err=u_err, seg_ms=seg_ms, plain_ms=plain_ms,
+                         **_segment_bound(n, p, mats, psi0p, order, s, k))
         _line("phase3", problem=name, iterations=n, u_max_abs_err=u_err,
               u_tol=u_tol, u_plain_f32_vs_f64=floor, loss_abs_err=loss_err, unitary_scale_abs_err=us_err,
               loss_kernel=k.loss, loss_plain=r.loss,
-              kernel_ms_per_iter=seg_ms / n, plain_ms_per_iter=plain_ms / n)
+              kernel_ms_per_iter=seg_ms / n, plain_ms_per_iter=plain_ms / n,
+              bound_ms_per_iter=out[name]["bound_ms"] / n,
+              bound_by=out[name]["bound_by"])
     return out
 
 
@@ -360,7 +433,8 @@ def phase_mega_costs(dev, problems) -> dict:
                                init(p.u0_base), n, **statics)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        out[name] = dict(u_err=u_err, seg_ms=seg_ms, plain_ms=plain_ms)
+        out[name] = dict(u_err=u_err, seg_ms=seg_ms, plain_ms=plain_ms,
+                         **_segment_bound(n, p, mats, psi0p, order, s, k))
         _line("phase3b", problem=name, reg_coeffs=sorted(rc), M=2 * p.state_num,
               T=p.steps, Tp=s0.u_base.shape[1], V=int(psi0p.shape[1]),
               trajectory=costs.traj, bins=int(costs.dftc.shape[1]),
@@ -370,7 +444,9 @@ def phase_mega_costs(dev, problems) -> dict:
               reg_loss_plain_f32_vs_f64=reg_floor,
               unitary_scale_abs_err=us_err, reg_loss_kernel=k.reg_loss,
               reg_loss_plain=r.reg_loss, kernel_ms_per_iter=seg_ms / n,
-              plain_ms_per_iter=plain_ms / n)
+              plain_ms_per_iter=plain_ms / n,
+              bound_ms_per_iter=out[name]["bound_ms"] / n,
+              bound_by=out[name]["bound_by"])
     return out
 
 
@@ -541,8 +617,14 @@ def phase_state_chain(dev, problems) -> dict:
             worst["state_chain_backward"], _abs(gk[0], gr[0]),
             _abs(gk[1], gr[1]))
         wd, pd = w.detach(), p0.detach()
-        _, traj = _cuda.state_chain_forward(mats, wd, pd, order, s)
+        out_c, traj = _cuda.state_chain_forward(mats, wd, pd, order, s)
+        wbar, psibar = _cuda.state_chain_backward(mats, wd, traj, R, order, s)
+        macs = chain_macs(T, C, K, M, order, s)
+        fb, fby = _bound(2 * macs, _nbytes(mats, wd, pd, out_c, traj))
+        bb, bby = _bound(4 * macs, _nbytes(mats, wd, traj, R, wbar, psibar))
         t = dict(
+            fwd_bound_ms=fb, fwd_bound_by=fby, bwd_bound_ms=bb,
+            bwd_bound_by=bby,
             fwd_ms=_timed_ms(lambda: _cuda.state_chain_forward(
                 mats, wd, pd, order, s), 5),
             fwd_plain_ms=_timed_ms(lambda: state_chain_reference(
@@ -571,7 +653,8 @@ def phase_mega_batch(dev, problems) -> dict:
     from qoc_tpu_torch.ops import _cuda
     from qoc_tpu_torch.optim.convergence import ConvergenceSettings
     from qoc_tpu_torch.parallel.batch import init_seeds
-    from qoc_tpu_torch.parallel.cols_batch import make_xla_batched_loss
+    from qoc_tpu_torch.parallel.cols_batch import (chain_inputs,
+                                                   make_xla_batched_loss)
     from qoc_tpu_torch.parallel.mega_batch import (
         batch_segment_statics, make_mega_batched_runner,
         mega_batch_segment_reference)
@@ -651,14 +734,23 @@ def phase_mega_batch(dev, problems) -> dict:
                 f"{reg_err:.3e} (<= {reg_tol:.3e}), it equal {same_it}, "
                 f"done equal {same_done}")
         seg_ms = _timed_ms(lambda: run(init(u0), n, extra_weights=ew), 1)
-        out[name] = dict(u_err=u_err, seg_ms=seg_ms, plain_ms=plain_ms)
+        cm, _, order, s = chain_inputs(p, em, device=dev)
+        C = k.u_cols.shape[2]
+        bound, by = _bound(
+            2 * 3 * n * chain_macs(p.steps, C, cm.shape[0], cm.shape[1],
+                                   order, s),
+            _nbytes(cm) + 2 * _nbytes(k.u_cols, k.m_cols, k.v_cols))
+        out[name] = dict(u_err=u_err, seg_ms=seg_ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by)
         _line("phase6", problem=name, reg_coeffs=sorted(rc or {}),
               M=2 * p.state_num, T=p.steps, V=V, seeds=S, iterations=n,
               u_max_abs_err=u_err, u_tol=u_tol, u_plain_f32_vs_f64=floor,
               loss_max_abs_err=loss_err, reg_loss_max_abs_err=reg_err,
               reg_loss_tol=reg_tol, it_final=sorted(set(
                   k.it_cols[0].tolist())),
-              kernel_ms_per_iter=seg_ms / n, plain_ms_per_iter=plain_ms / n)
+              kernel_ms_per_iter=seg_ms / n, plain_ms_per_iter=plain_ms / n,
+              bound_ms_per_iter=out[name]["bound_ms"] / n,
+              bound_by=out[name]["bound_by"])
     return out
 
 
@@ -766,9 +858,287 @@ def phase_batch(dev, problems) -> dict:
     return totals
 
 
-def main() -> int:
+# ---- the pscan and associative engines, kernels 7-8 (phase 8) --------------
+
+CONFIG4 = os.path.join(HERE, "examples", "jobs", "transmon_cavity.json")
+# 8c's bar on 1 - loss after the job's 5000 iterations (qoc_tpu reaches
+# 0.99987751 on the CPU, 0.99990577 on a TPU, PARITY.md:188)
+CONFIG4_BAR = 0.999
+# 8a's shapes: (name, T, M, order, scaling); config 4's comes from its job
+EXPM_CASES = [("config4", 1000, 120, 14, 0), ("m32_tail", 7, 32, 12, 3),
+              ("m256", 64, 256, 8, 2), ("m512", 64, 512, 6, 1)]
+
+
+def _config4():
+    """Config 4's job (Grape keyword arguments) and its problem."""
+    from qoc_tpu_torch.models.system import ControlProblem
+    from qoc_tpu_torch.utils.jobs import load_job
+
+    job = load_job(CONFIG4)
+    job["save"] = False               # no h5py on the card's machine
+    names = ("H0", "Hops", "Hnames", "U", "total_time", "steps",
+             "states_concerned_list")
+    build = ("U0", "dressed_info", "maxA", "initial_guess", "state_transfer",
+             "no_scaling", "Taylor_terms", "use_inter_vecs", "seed")
+    p = ControlProblem.build(*(job[k] for k in names),
+                             **{k: job[k] for k in build if k in job})
+    return job, p
+
+
+def _config4_generators(p, dev):
+    """A_t [T, M, M] of config 4 at its seeded initial pulse: what the
+    pscan engine hands kernel 7 (powers 0..taylor_terms-1)."""
     import torch
 
+    from qoc_tpu_torch.interop import problem_tensors
+    from qoc_tpu_torch.ops.expm import weighted_hamiltonians
+
+    tens = problem_tensors(p, dev)
+    u = torch.as_tensor(np.asarray(p.u0_base, np.float32), device=dev)
+    w = torch.cat([torch.ones((1, p.steps), device=dev),
+                   tens["ops_max_amp"][:, None] * torch.sin(u)])
+    return weighted_hamiltonians(tens["mats"], w)
+
+
+def expm_work(T: int, M: int, order: int, scaling: int):
+    """Multiply-adds of kernels 7 and 8 on A [T, M, M]: the forward's
+    (order - 1) powers and ``scaling`` squarings per step; the backward's
+    recomputed powers and squarings (the last one is not needed), the
+    squarings' reverse (2 products each) and the Taylor reverse (2 per
+    power)."""
+    fwd = T * (order - 1 + scaling) * M ** 3
+    bwd = T * (3 * (order - 1) + max(3 * scaling - 1, 0)) * M ** 3
+    return fwd, bwd
+
+
+def phase_expm(dev, p4) -> dict:
+    """Kernels 7 and 8 against their plain versions (8a)."""
+    import torch
+
+    from qoc_tpu_torch.ops import _cuda
+    from qoc_tpu_torch.ops.fused_expm import (
+        fused_expm_backward_reference, fused_expm_reference)
+
+    rng = np.random.default_rng(8)
+    worst = {"expm_forward": 0.0, "expm_backward": 0.0}
+    out = {}
+    for name, T, M, order, s in EXPM_CASES:
+        if name == "config4":
+            A = _config4_generators(p4, dev).contiguous()
+            assert A.shape == (T, M, M) and order == p4.taylor_terms - 1
+        else:
+            # |A| ~ 2^s (|H| ~ 2 sqrt(M/2) for _generators' H, dt = 10/T'):
+            # the series' terms peak near n = 1 after the scaling
+            A = _on(dev, _generators(T, M, 20 * np.sqrt(M // 2) / 2 ** s,
+                                     rng))
+        G = _on(dev, rng.standard_normal((T, M, M)).astype(np.float32))
+        E_k = _cuda.expm_forward(A, order, s)
+        E_r = fused_expm_reference(A, order, s)
+        Ab_k = _cuda.expm_backward(A, G, order, s)
+        Ab_r = fused_expm_backward_reference(A, G, order, s)
+        # how far float32 itself drifts: both against the plain version in
+        # float64 (the powers peak near n = |A|, so the sum cancels)
+        E_64 = fused_expm_reference(A.double(), order, s)
+        Ab_64 = fused_expm_backward_reference(A.double(), G.double(), order,
+                                              s)
+        torch.cuda.synchronize()
+        fwd_rel, bwd_rel = _rel(E_k, E_r), _rel(Ab_k, Ab_r)
+        if not (fwd_rel <= 2e-5 and bwd_rel <= 1e-4):
+            raise AssertionError(
+                f"expm kernels disagree on {name} (T={T} M={M} order={order} "
+                f"s={s}): forward rel {fwd_rel:.3e} (<= 2e-5), backward rel "
+                f"{bwd_rel:.3e} (<= 1e-4)")
+        worst["expm_forward"] = max(worst["expm_forward"], _abs(E_k, E_r))
+        worst["expm_backward"] = max(worst["expm_backward"], _abs(Ab_k, Ab_r))
+        reps = 10 if T * M ** 3 < 5e9 else 3
+        fwd_macs, bwd_macs = expm_work(T, M, order, s)
+        fb, fby = _bound(2 * fwd_macs, _nbytes(A, E_k))
+        bb, bby = _bound(2 * bwd_macs, _nbytes(A, G, Ab_k))
+        t = dict(
+            fwd_ms=_timed_ms(lambda: _cuda.expm_forward(A, order, s), reps),
+            fwd_plain_ms=_timed_ms(lambda: fused_expm_reference(A, order, s),
+                                   reps),
+            bwd_ms=_timed_ms(lambda: _cuda.expm_backward(A, G, order, s),
+                             reps),
+            bwd_plain_ms=_timed_ms(lambda: fused_expm_backward_reference(
+                A, G, order, s), reps),
+            fwd_bound_ms=fb, fwd_bound_by=fby, bwd_bound_ms=bb,
+            bwd_bound_by=bby)
+        out[name] = t
+        _line("phase8a", case=name, T=T, M=M, order=order, scaling=s,
+              A_max_abs=float(A.abs().max()), fwd_max_rel_err=fwd_rel,
+              bwd_max_rel_err=bwd_rel, fwd_kernel_vs_f64=_rel(E_k, E_64),
+              fwd_plain_vs_f64=_rel(E_r, E_64),
+              bwd_kernel_vs_f64=_rel(Ab_k, Ab_64),
+              bwd_plain_vs_f64=_rel(Ab_r, Ab_64),
+              fwd_gflop_per_s=2 * fwd_macs / t["fwd_ms"] / 1e6,
+              bwd_gflop_per_s=2 * bwd_macs / t["bwd_ms"] / 1e6, **t)
+    return {"worst": worst, "times": out}
+
+
+def _loss_and_grad(loss_fn, u):
+    import torch
+
+    u = u.detach().requires_grad_(True)
+    reg, _ = loss_fn(u)
+    (g,) = torch.autograd.grad(reg, u)
+    return float(reg.detach()), g
+
+
+def phase_engines(dev, job, p4) -> dict:
+    """8b: pscan, associative and scan at config 4's iteration 0 on the
+    card, and the pscan iteration's parts in CUDA-event time."""
+    import torch
+
+    from qoc_tpu_torch.interop import problem_tensors
+    from qoc_tpu_torch.models.forward import make_forward
+    from qoc_tpu_torch.ops import propagation as prop
+
+    rc = job["reg_coeffs"]
+    u0 = torch.as_tensor(np.asarray(p4.u0_base, np.float32), device=dev)
+    res = {}
+    for engine in ("pscan", "associative", "scan"):
+        _, loss_fn = make_forward(p4, reg_coeffs=rc, engine=engine, lean=True,
+                                  device=dev)
+        reg, g = _loss_and_grad(loss_fn, u0)
+        ms = _timed_ms(lambda: _loss_and_grad(loss_fn, u0),
+                       1 if engine == "scan" else 5)
+        res[engine] = dict(reg=reg, g=g, ms=ms)
+    ref = res["pscan"]
+    fields = {}
+    for engine in ("associative", "scan"):
+        r = res[engine]
+        reg_rel = abs(r["reg"] - ref["reg"]) / abs(ref["reg"])
+        g_rel = float((r["g"] - ref["g"]).abs().max() / ref["g"].abs().max())
+        fields[engine] = dict(reg_loss=r["reg"], reg_rel=reg_rel,
+                              grad_rel=g_rel, ms_per_iteration=r["ms"])
+        if not (reg_rel <= 1e-5 and g_rel <= 5e-4):
+            raise AssertionError(
+                f"config 4 at iteration 0: {engine} against pscan, reg_loss "
+                f"rel {reg_rel:.3e} (<= 1e-5), max|dg| / max|g| {g_rel:.3e} "
+                f"(<= 5e-4)")
+
+    # the pscan iteration in parts (CUDA events): kernel 7's Q, the forward
+    # sweep, the adjoint sweep, the ladders and pairing; the rest of the
+    # iteration (generators, costs, autograd) is the remainder of a whole
+    # iteration timed beside them (the sweeps' launch rate follows the
+    # host's)
+    tens = problem_tensors(p4, dev)
+    mats, psi0 = tens["mats"], tens["initial_vectors"]
+    order = p4.taylor_terms
+    w = torch.cat([torch.ones((1, p4.steps), device=dev),
+                   tens["ops_max_amp"][:, None] * torch.sin(u0)])
+    vecs, A, Q = prop._pscan_run(mats, w, psi0, order, 1)
+    g = torch.randn_like(vecs)
+    lams, _ = prop.pscan_reverse_sweep(Q, g, 1)
+    parts = dict(
+        q_kernel_ms=_timed_ms(
+            lambda: prop.batched_taylor_expm(A, order - 1, 0), 5),
+        forward_sweep_ms=_timed_ms(lambda: prop.pscan_sweep(Q, psi0, 1), 5),
+        adjoint_sweep_ms=_timed_ms(
+            lambda: prop.pscan_reverse_sweep(Q, g, 1), 5),
+        ladders_pairing_ms=_timed_ms(lambda: prop.pscan_pairing(
+            mats, w, A, vecs, lams, order - 1, 1), 5))
+    _, pscan_loss = make_forward(p4, reg_coeffs=rc, engine="pscan",
+                                 lean=True, device=dev)
+    whole = _timed_ms(lambda: _loss_and_grad(pscan_loss, u0), 5)
+    parts["rest_ms"] = whole - sum(parts.values())
+    parts["whole_ms"] = whole
+    _line("phase8b", problem="transmon_cavity", M=2 * p4.state_num,
+          T=p4.steps, K=p4.ops_len + 1, order=order,
+          pscan_reg_loss=ref["reg"], pscan_ms_per_iteration=ref["ms"],
+          pscan_parts=parts, **fields)
+    return dict(parts=parts, pscan_ms=ref["ms"],
+                associative_ms=res["associative"]["ms"],
+                scan_ms=res["scan"]["ms"])
+
+
+def phase_config4(dev, job, p4) -> dict:
+    """8c and 8d: config 4 through ``Grape``; launch counts are reset just
+    before each run and read just after; returns their sums."""
+    import qoc_tpu_torch as q
+    from qoc_tpu_torch.ops import _cuda
+
+    reg0 = _reg_loss_at_start({"kwargs": job}, p4)
+    conv = job["convergence"]
+    runs = [("auto", conv), ("associative", dict(conv, max_iterations=20))]
+    totals = dict.fromkeys(_cuda.LAUNCHES, 0)
+    failures = []
+    for engine, c in runs:
+        kw = dict(job, convergence=c, engine=engine, device=dev)
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = q.Grape(**kw)
+        wall = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        for kname, cnt in launches.items():
+            totals[kname] += cnt
+        fid_gap = abs(res.fidelity_f64 - (1.0 - res.loss))
+        ok = (res.uks.shape == (p4.ops_len, p4.steps)
+              and np.all(np.isfinite(res.uks)) and res.reg_loss < reg0
+              and launches["expm_forward"] >= 1)
+        if engine == "auto":
+            ok = (ok and res.engine == "pscan"
+                  and launches["expm_backward"] == 0
+                  and fid_gap <= 5e-5 and 1.0 - res.loss >= CONFIG4_BAR)
+            bar = (f"routed to {res.engine!r} (want 'pscan'), launches "
+                   f"{launches} (expm_forward >= 1, expm_backward 0), "
+                   f"|fidelity_f64 - (1 - loss)| {fid_gap:.3e} (<= 5e-5), "
+                   f"1 - loss {1.0 - res.loss:.6f} (>= {CONFIG4_BAR})")
+        else:
+            ok = ok and launches["expm_backward"] >= 1
+            bar = f"launches {launches} (expm_forward, expm_backward >= 1)"
+        _line("phase8c" if engine == "auto" else "phase8d",
+              problem="transmon_cavity", engine=res.engine,
+              iterations=res.iterations, loss=res.loss,
+              one_minus_loss=1.0 - res.loss, reg_loss=res.reg_loss,
+              reg_loss_iteration_0=reg0, fidelity_f64=res.fidelity_f64,
+              fidelity_f64_gap=fid_gap, wall_s=wall,
+              iters_per_s=res.iterations / wall, launches=launches)
+        if not ok:
+            failures.append(f"Grape on config 4 (engine={engine!r}): {bar}, "
+                            f"reg_loss {res.reg_loss:.4e} (< {reg0:.4e})")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return totals
+
+
+def _times(t: dict, prefix: str, ms_prefix: Optional[str] = None):
+    """(ms, plain_ms, bound_ms, bound_by) of a phase's timing entry."""
+    ms_prefix = prefix if ms_prefix is None else ms_prefix
+    return (t[ms_prefix + "ms"], t[prefix + "plain_ms"],
+            t[prefix + "bound_ms"], t[prefix + "bound_by"])
+
+
+def _kernel(name: str, source: str, replaces: str, launches: dict,
+            max_abs_err: float, ms: float, plain_ms: float, bound_ms: float,
+            bound_by: str) -> dict:
+    """One entry of the kernels line.  No single PyTorch call computes any
+    of these functions (a truncated Taylor series and its chain products,
+    Adam segments), so ``library_ms`` is null throughout."""
+    return dict(name=name, route="cuda",
+                source="qoc_tpu_torch/csrc/" + source,
+                replaces="qoc_tpu/" + replaces, launches=launches[name],
+                max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+GROUPS = ("2-4", "5-7", "8")
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(GROUPS),
+                    help="comma-separated phase groups among "
+                         f"{', '.join(GROUPS)} (default: all; phase 1 "
+                         "always runs)")
+    groups = ap.parse_args().phases.split(",")
+    if not set(groups) <= set(GROUPS):
+        ap.error(f"--phases takes groups among {GROUPS}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
@@ -788,74 +1158,73 @@ def main() -> int:
           cuda=torch.version.cuda, python=sys.version.split()[0],
           build_s=build_s, library=os.path.relpath(lib_path, HERE))
 
-    tree = phase_tree(dev)
-    problems = _problems()
-    mega = phase_mega(dev, {k: problems[k] for k in ("pi_pulse", "cnot")})
-    costs = phase_mega_costs(dev, problems)
-    launches = phase_grape(problems)
-    t0 = time.perf_counter()
-    chain = phase_state_chain(dev, problems)
-    batch = phase_mega_batch(dev, problems)
-    batch_launches = phase_batch(dev, problems)
-    _line("phases5to7", wall_s=time.perf_counter() - t0)
-
-    pi_shape = tree["times"][(3, 4, 1000, 2, 0)]
-    pi_cols = chain["times"]["pi_pulse"]
-    kernels = [
-        dict(name="tree_forward", route="cuda",
-             source="qoc_tpu_torch/csrc/tree_chain.cu",
-             replaces="qoc_tpu/ops/pallas_tree.py:284",
-             launches=launches["tree_forward"],
-             max_abs_err=tree["worst"]["tree_forward"],
-             ms=pi_shape["fwd_ms"], plain_ms=pi_shape["fwd_plain_ms"]),
-        dict(name="tree_backward", route="cuda",
-             source="qoc_tpu_torch/csrc/tree_chain.cu",
-             replaces="qoc_tpu/ops/pallas_tree.py:328",
-             launches=launches["tree_backward"],
-             max_abs_err=tree["worst"]["tree_backward"],
-             ms=pi_shape["bwd_ms"], plain_ms=pi_shape["bwd_plain_ms"]),
-        dict(name="mega_segment", route="cuda",
-             source="qoc_tpu_torch/csrc/mega.cu",
-             replaces="qoc_tpu/ops/pallas_mega.py:325",
-             launches=launches["mega_segment"],
-             max_abs_err=max(m["u_err"] for m in mega.values()),
-             ms=mega["pi_pulse"]["seg_ms"],
-             plain_ms=mega["pi_pulse"]["plain_ms"]),
-        dict(name="mega_segment_costs", route="cuda",
-             source="qoc_tpu_torch/csrc/mega_costs.cu",
-             replaces="qoc_tpu/ops/pallas_mega.py:325",
-             launches=launches["mega_segment_costs"],
-             max_abs_err=max(m["u_err"] for m in costs.values()),
-             ms=costs["transmon_leakage"]["seg_ms"],
-             plain_ms=costs["transmon_leakage"]["plain_ms"]),
-        dict(name="state_chain_forward", route="cuda",
-             source="qoc_tpu_torch/csrc/state_chain.cu",
-             replaces="qoc_tpu/ops/pallas_chain.py:115",
-             launches=batch_launches["state_chain_forward"],
-             max_abs_err=chain["worst"]["state_chain_forward"],
-             ms=pi_cols["fwd_ms"], plain_ms=pi_cols["fwd_plain_ms"]),
-        dict(name="state_chain_backward", route="cuda",
-             source="qoc_tpu_torch/csrc/state_chain.cu",
-             replaces="qoc_tpu/ops/pallas_chain.py:220",
-             launches=batch_launches["state_chain_backward"],
-             max_abs_err=chain["worst"]["state_chain_backward"],
-             ms=pi_cols["bwd_ms"], plain_ms=pi_cols["bwd_plain_ms"]),
-        dict(name="mega_batch_segment", route="cuda",
-             source="qoc_tpu_torch/csrc/mega_batch.cu",
-             replaces="qoc_tpu/parallel/pallas_mega_batch.py:567",
-             launches=batch_launches["mega_batch_segment"],
-             max_abs_err=max(batch[k]["u_err"] for k in BATCH_PLAIN),
-             ms=batch["pi_pulse_sweep"]["seg_ms"],
-             plain_ms=batch["pi_pulse_sweep"]["plain_ms"]),
-        dict(name="mega_batch_segment_costs", route="cuda",
-             source="qoc_tpu_torch/csrc/mega_batch_costs.cu",
-             replaces="qoc_tpu/parallel/pallas_mega_batch.py:567",
-             launches=batch_launches["mega_batch_segment_costs"],
-             max_abs_err=max(v["u_err"] for k, v in batch.items()
-                             if k not in BATCH_PLAIN),
-             ms=batch["transmon_leakage"]["seg_ms"],
-             plain_ms=batch["transmon_leakage"]["plain_ms"]),
-    ]
+    kernels = []
+    if "2-4" in groups:
+        tree = phase_tree(dev)
+        problems = _problems()
+        mega = phase_mega(dev, {k: problems[k] for k in ("pi_pulse", "cnot")})
+        costs = phase_mega_costs(dev, problems)
+        launches = phase_grape(problems)
+        pi_shape = tree["times"][(3, 4, 1000, 2, 0)]
+        mega_err = max(m["u_err"] for m in mega.values())
+        costs_err = max(m["u_err"] for m in costs.values())
+        kernels += [
+            _kernel("tree_forward", "tree_chain.cu", "ops/pallas_tree.py:284",
+                    launches, tree["worst"]["tree_forward"],
+                    *_times(pi_shape, "fwd_")),
+            _kernel("tree_backward", "tree_chain.cu", "ops/pallas_tree.py:328",
+                    launches, tree["worst"]["tree_backward"],
+                    *_times(pi_shape, "bwd_")),
+            _kernel("mega_segment", "mega.cu", "ops/pallas_mega.py:325",
+                    launches, mega_err, *_times(mega["pi_pulse"], "", "seg_")),
+            _kernel("mega_segment_costs", "mega_costs.cu",
+                    "ops/pallas_mega.py:325", launches, costs_err,
+                    *_times(costs["transmon_leakage"], "", "seg_")),
+        ]
+    if "5-7" in groups:
+        problems = _problems()
+        t0 = time.perf_counter()
+        chain = phase_state_chain(dev, problems)
+        batch = phase_mega_batch(dev, problems)
+        batch_launches = phase_batch(dev, problems)
+        _line("phases5to7", wall_s=time.perf_counter() - t0)
+        pi_cols = chain["times"]["pi_pulse"]
+        plain_err = max(batch[k]["u_err"] for k in BATCH_PLAIN)
+        costs_err = max(v["u_err"] for k, v in batch.items()
+                        if k not in BATCH_PLAIN)
+        kernels += [
+            _kernel("state_chain_forward", "state_chain.cu",
+                    "ops/pallas_chain.py:115", batch_launches,
+                    chain["worst"]["state_chain_forward"],
+                    *_times(pi_cols, "fwd_")),
+            _kernel("state_chain_backward", "state_chain.cu",
+                    "ops/pallas_chain.py:220", batch_launches,
+                    chain["worst"]["state_chain_backward"],
+                    *_times(pi_cols, "bwd_")),
+            _kernel("mega_batch_segment", "mega_batch.cu",
+                    "parallel/pallas_mega_batch.py:567", batch_launches,
+                    plain_err, *_times(batch["pi_pulse_sweep"], "", "seg_")),
+            _kernel("mega_batch_segment_costs", "mega_batch_costs.cu",
+                    "parallel/pallas_mega_batch.py:567", batch_launches,
+                    costs_err,
+                    *_times(batch["transmon_leakage"], "", "seg_")),
+        ]
+    if "8" in groups:
+        t0 = time.perf_counter()
+        job, p4 = _config4()
+        expm = phase_expm(dev, p4)
+        phase_engines(dev, job, p4)
+        expm_launches = phase_config4(dev, job, p4)
+        _line("phase8", wall_s=time.perf_counter() - t0)
+        c4 = expm["times"]["config4"]
+        kernels += [
+            _kernel("expm_forward", "expm.cu", "ops/pallas_expm.py:147",
+                    expm_launches, expm["worst"]["expm_forward"],
+                    *_times(c4, "fwd_")),
+            _kernel("expm_backward", "expm.cu", "ops/pallas_expm.py:147",
+                    expm_launches, expm["worst"]["expm_backward"],
+                    *_times(c4, "bwd_")),
+        ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,16 +2,17 @@
 
 Same positional arguments, keyword defaults and ``(uks, U_final)`` return
 as qoc_tpu's ``Grape`` (and the reference, main_grape/grape.py:19), plus
-``device``: where the problem's tensors live.  ``None`` takes the first
-CUDA device when torch sees one, else the CPU, as qoc_tpu takes JAX's
-default backend.
+``device``: where the problem's tensors live.  ``None`` means the CUDA
+card and raises when torch sees none; ``device="cpu"`` runs the plain
+torch versions on the CPU.
 
 Supported: ``method="Adam"`` and ``"EVOLVE"``, exact gradients, and all
 seven penalties (``reg_coeffs``, ``models.costs``).  On a CUDA device an
 Adam run goes through the fused segment kernel (``ops.mega``) whenever
-``mega_supported`` holds (``engine="auto"`` or ``"mega"``), or through
-the per-iteration runner over the plain engines, or the tree chain
-kernel (``engine="tree"``).  On the CPU, ``engine="mega"`` runs the
+``mega_supported`` holds (``engine="auto"`` or ``"mega"``), else through
+the per-iteration runner over the engine qoc_tpu's ladders pick
+(``ops.propagation``: ``tree``, ``pscan``, ``associative`` or ``scan``;
+each can also be asked for by name).  On the CPU, ``engine="mega"`` runs the
 segment's plain torch version, and everything else runs the plain
 engines.  The other methods, resume and the IPython dashboard are not
 ported yet (ROADMAP.md) and raise ``NotImplementedError`` (the
@@ -26,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .interop import entry_device
 from .models.costs import cost_names, validate_reg_coeffs
 from .models.forward import make_forward
 from .models.system import ControlProblem
@@ -112,9 +114,7 @@ def Grape(
         raise _not_ported("resume_from (utils/checkpoint.py)")
     if remat:
         raise _not_ported("remat")
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    device = entry_device(device)
 
     file_path = None
     if save:

@@ -24,6 +24,20 @@ def full_fp32_matmul() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def entry_device(device) -> torch.device:
+    """The device of an entry point (``Grape``, ``batched_grape_adam``):
+    ``None`` means the CUDA card, and raises when torch sees none; the CPU
+    is only ever taken when the caller asks for it."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device=None runs on the CUDA card, and torch sees no CUDA "
+                "device; pass device='cpu' to run the plain torch versions "
+                "on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
 def problem_tensors(problem, device) -> dict:
     """The problem's device arrays as float32 tensors on ``device``:
     mats [K+1, 2N, 2N], U0_iso [2N, 2N], initial_vectors / target_vectors

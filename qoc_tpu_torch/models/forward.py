@@ -7,6 +7,12 @@ of ``qoc_tpu.models.forward``, iso representation).
 when ``use_inter_vecs``) and the lean optimization loss (intermediate
 states only when a selected cost reads them, ``INTER_VEC_COSTS``).  The
 regularized loss is ``loss + total_reg_cost(...)`` (``models.costs``).
+
+On the unitary ``pscan`` engine the loss reads the final unitary only
+through final_vecs, so the full product (``final_state``) is an output
+alone: the analysis forward computes it without gradient, and the lean
+loss, which nothing reads it from, leaves it out (``final_state`` None),
+where qoc_tpu leaves XLA to drop its stop-gradient copy.
 """
 
 from __future__ import annotations
@@ -18,12 +24,12 @@ import torch
 from ..interop import problem_tensors
 from ..ops.inner_products import inner_product_2d
 from ..ops.propagation import (
+    chain_product_tree,
     evolve_unitary,
+    evolve_unitary_pscan,
     evolve_unitary_tree,
-    pick_engine,
-    resolve_state_engine,
-    resolve_unitary_engine,
     state_transfer_chain,
+    step_propagators,
 )
 from .costs import CostContext, total_reg_cost
 from .system import ControlProblem
@@ -35,7 +41,9 @@ class ForwardOutput(NamedTuple):
     loss: torch.Tensor           # fidelity loss 1 - F
     reg_loss: torch.Tensor       # loss + penalties (the optimization target)
     unitary_scale: torch.Tensor  # unitarity diagnostic (tensorflow_state.py:225,:335)
-    final_state: torch.Tensor    # [2N, 2N] final unitary, or [2N, V] final vecs
+    # [2N, 2N] final unitary, or [2N, V] final vecs (None: the lean
+    # unitary pscan, which never forms the unitary)
+    final_state: Optional[torch.Tensor]
     inter_vecs: Optional[torch.Tensor]  # [T+1, 2N, V] or None
     ops_weight: torch.Tensor     # [K, T] normalized weights sin(base)
 
@@ -61,18 +69,11 @@ def make_forward(
             k in (reg_coeffs or {}) for k in INTER_VEC_COSTS)
     else:
         needs_inter = p.use_inter_vecs
-    on_accel = device.type == "cuda"
-    if engine != "auto":
-        resolved_engine = engine
-    elif p.state_transfer:
-        resolved_engine = resolve_state_engine(
-            2 * N, p.steps, gradient_mode, not needs_inter, on_accel)
-    elif gradient_mode == "exact":
-        resolved_engine = resolve_unitary_engine(
-            2 * N, p.steps, p.taylor_scaling, gradient_mode, needs_inter,
-            on_accel)
-    else:
-        resolved_engine = pick_engine(2 * N, p.steps)
+    # imported here: routing reads INTER_VEC_COSTS from this module
+    from ..routing import resolve_single_engine
+
+    resolved_engine = resolve_single_engine(p, reg_coeffs, gradient_mode,
+                                            engine, lean, device)
     ones = torch.ones((1, p.steps), dtype=torch.float32, device=device)
 
     def forward(u_base: torch.Tensor,
@@ -94,18 +95,29 @@ def make_forward(
             if not needs_inter:
                 inter_vecs = None
         else:
-            if resolved_engine == "tree" and not needs_inter:
-                final_U = evolve_unitary_tree(
-                    mats_, weights, U0, p.taylor_terms, p.taylor_scaling)
-                inter_vecs = None
-            else:
-                final_U, inter_vecs = evolve_unitary(
+            if resolved_engine == "pscan" and gradient_mode == "exact":
+                final_vecs, unitary_scale, inter_vecs = evolve_unitary_pscan(
                     mats_, weights, U0, psi0, p.taylor_terms,
-                    p.taylor_scaling, gradient_mode=gradient_mode,
-                    engine=resolved_engine, use_inter_vecs=needs_inter)
-            final_vecs = torch.matmul(final_U, psi0)
-            unitary_scale = (0.5 / N) * torch.sum(
-                torch.matmul(final_U.T, final_U))
+                    p.taylor_scaling, use_inter_vecs=needs_inter)
+                final_U = None
+                if not lean:
+                    with torch.no_grad():
+                        final_U = torch.matmul(chain_product_tree(
+                            step_propagators(mats_, weights, p.taylor_terms,
+                                             p.taylor_scaling)), U0)
+            else:
+                if resolved_engine == "tree" and not needs_inter:
+                    final_U = evolve_unitary_tree(
+                        mats_, weights, U0, p.taylor_terms, p.taylor_scaling)
+                    inter_vecs = None
+                else:
+                    final_U, inter_vecs = evolve_unitary(
+                        mats_, weights, U0, psi0, p.taylor_terms,
+                        p.taylor_scaling, gradient_mode=gradient_mode,
+                        engine=resolved_engine, use_inter_vecs=needs_inter)
+                final_vecs = torch.matmul(final_U, psi0)
+                unitary_scale = (0.5 / N) * torch.sum(
+                    torch.matmul(final_U.T, final_U))
             loss = 1.0 - inner_product_2d(final_vecs, target_vecs, N)
             final_state = final_U
         ctx = CostContext(

@@ -1,12 +1,13 @@
 """Build and bind the port's CUDA kernels (``qoc_tpu_torch/csrc``).
 
 ``nvcc`` compiles each source of ``SOURCES`` (the tree chain, the fused
-segment's two instances, the state chain, and the fused batched
-optimizer's two instances) for ``sm_90a`` (one process per source, all
-started together), then links them into one shared library with a plain
-C interface, loaded with ctypes.  The build runs at the first launch,
-never at import, into ``<repo>/.torch_ext_build/<hash of sources and
-flags>/`` (no PyTorch headers are compiled).  ptxas' register and spill
+segment's two instances, the state chain, the fused batched optimizer's
+two instances, and the batched Taylor exponential) for ``sm_90a`` (one
+process per source, all started together), then links them into one
+shared library with a plain C interface, loaded with ctypes.  The build
+runs at the first launch, never at import, into
+``<repo>/.torch_ext_build/<hash of sources and flags>/`` (no PyTorch
+headers are compiled).  ptxas' register and spill
 report is kept beside the library as ``build.log``.
 
 There is no fallback: a missing ``nvcc``, a failed build or a failed
@@ -31,8 +32,9 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / ".torch_ext_build"
 SOURCES = ("tree_chain.cu", "mega.cu", "mega_costs.cu", "state_chain.cu",
-           "mega_batch.cu", "mega_batch_costs.cu")
-HEADERS = ("tree_chain.cuh", "mega.cuh", "state_chain.cuh", "mega_batch.cuh")
+           "mega_batch.cu", "mega_batch_costs.cu", "expm.cu")
+HEADERS = ("tree_chain.cuh", "mega.cuh", "state_chain.cuh", "mega_batch.cuh",
+           "expm.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -43,12 +45,14 @@ MAX_V = 16                 # kMaxV in mega.cuh
 MAX_V_TRAJ = 8             # kMaxVTraj in mega.cuh (trajectory mode)
 MAX_K = 16                 # kMaxK in state_chain.cuh (generators per step)
 MAX_V_BATCH = 8            # kMaxVBatch in mega_batch.cuh
+EXPM_SHARED_MAX_M = 120    # kExpmSharedMaxM in expm.cuh
 
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES = {"tree_forward": 0, "tree_backward": 0, "mega_segment": 0,
             "mega_segment_costs": 0, "state_chain_forward": 0,
             "state_chain_backward": 0, "mega_batch_segment": 0,
-            "mega_batch_segment_costs": 0}
+            "mega_batch_segment_costs": 0, "expm_forward": 0,
+            "expm_backward": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -168,6 +172,9 @@ def _library():
             lib.qoc_mega_batch_segment.argtypes = batch + [_P]
             lib.qoc_mega_batch_segment_costs.argtypes = batch + [
                 ctypes.POINTER(BatchCostArgs), _P]
+            lib.qoc_expm_forward.argtypes = [_P, _I, _I, _I, _I, _P, _P, _P]
+            lib.qoc_expm_backward.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P,
+                                              _P]
             lib.qoc_error_string.argtypes = [_I]
             lib.qoc_error_string.restype = ctypes.c_char_p
             for fn in (lib.qoc_tree_forward, lib.qoc_tree_backward,
@@ -175,7 +182,8 @@ def _library():
                        lib.qoc_state_chain_forward,
                        lib.qoc_state_chain_backward,
                        lib.qoc_mega_batch_segment,
-                       lib.qoc_mega_batch_segment_costs):
+                       lib.qoc_mega_batch_segment_costs,
+                       lib.qoc_expm_forward, lib.qoc_expm_backward):
                 fn.restype = _I
             _lib = lib
     return _lib
@@ -511,3 +519,52 @@ def mega_batch_segment(mats, maxamp, psi0, tgt, ew, u, m, v, itc, done, *,
     _raise_on(code, name)
     LAUNCHES[name] += 1
     return stats
+
+
+def expm_backward_slots(order: int, scaling: int) -> int:
+    """M x M buffers per timestep of kernel 8's scratch
+    (``expm_backward_slots`` in expm.cuh)."""
+    return max(order - 2, 0) + scaling + 6
+
+
+def _check_expm(A, order: int, scaling: int):
+    T, M, M2 = A.shape
+    if M != M2 or M < 8 or M % 8 or T < 1 or order < 0 or scaling < 0:
+        raise ValueError(f"expm kernels take A [T >= 1, M, M] with M a "
+                         f"multiple of 8 (got {tuple(A.shape)}, order "
+                         f"{order}, scaling {scaling})")
+    return T, M
+
+
+def expm_forward(A, order: int, scaling: int):
+    """Kernel 7: A [T, M, M] -> E [T, M, M] = Taylor_order(A / 2^s)^(2^s)."""
+    dev = _check(A)
+    T, M = _check_expm(A, order, scaling)
+    E = torch.empty_like(A)
+    scratch = (None if M <= EXPM_SHARED_MAX_M else
+               torch.empty((T, 4, M, M), dtype=torch.float32, device=dev))
+    code = _library().qoc_expm_forward(
+        A.data_ptr(), T, M, order, scaling, E.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), _stream(dev))
+    _raise_on(code, "expm_forward")
+    LAUNCHES["expm_forward"] += 1
+    return E
+
+
+def expm_backward(A, Ebar, order: int, scaling: int):
+    """Kernel 8: A and Ebar (the cotangent of E) [T, M, M] -> Abar
+    [T, M, M], the exact VJP of kernel 7."""
+    dev = _check(A, Ebar)
+    T, M = _check_expm(A, order, scaling)
+    if Ebar.shape != A.shape:
+        raise ValueError(f"Ebar {tuple(Ebar.shape)} does not match A "
+                         f"{tuple(A.shape)}")
+    Abar = torch.empty_like(A)
+    scratch = torch.empty((T, expm_backward_slots(order, scaling), M, M),
+                          dtype=torch.float32, device=dev)
+    code = _library().qoc_expm_backward(
+        A.data_ptr(), Ebar.data_ptr(), T, M, order, scaling, Abar.data_ptr(),
+        scratch.data_ptr(), _stream(dev))
+    _raise_on(code, "expm_backward")
+    LAUNCHES["expm_backward"] += 1
+    return Abar

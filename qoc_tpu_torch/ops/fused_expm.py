@@ -1,0 +1,163 @@
+"""Fused batched Taylor matrix exponential (port of
+``qoc_tpu.ops.pallas_expm``).
+
+    E_t = (sum_{n <= order} (A_t / 2^s)^n / n!)^(2^s),   A [T, M, M]
+
+``fused_taylor_expm`` computes exactly what ``ops.expm.taylor_expm``
+computes (same truncation, association order and squarings) as a
+``torch.autograd.Function``: on a CUDA tensor its forward is kernel 7 and
+its backward kernel 8 (``csrc/expm.cu``, one block per timestep with the
+series kept on chip); on the CPU both are the plain versions below.  The
+propagation engines take it for their batched Taylor step wherever
+``fused_expm_supported`` admits the shape.
+
+``fused_expm_reference`` and ``fused_expm_backward_reference`` are the
+plain torch versions: the series with ``torch.matmul``, and the reverse
+sweep of qoc_tpu's ``_bwd_kernel`` (recompute the powers and the
+pre-squaring E's, reverse the squarings as ``Ebar <- Ebar Es^T + Es^T
+Ebar``, then the Taylor reverse).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+from .expm import taylor_expm
+
+
+def _time_block(M: int) -> int:
+    """qoc_tpu's timesteps per grid program, kept for its admission rule."""
+    per_mat = M * M * 4
+    budget = 24 * (1 << 20)
+    tb = max(1, budget // (per_mat * 16))
+    return int(min(tb, 16))
+
+
+def fused_expm_supported(M: int, order: int, scaling: int) -> bool:
+    """qoc_tpu's admission rule (``pallas_expm.py:36-42``), kept so that
+    both packages route alike: 32 <= M <= 512, M % 8 == 0, and a per-block
+    working set sized for TPU VMEM.  The CUDA kernels take any M % 8 == 0
+    (above M = 120 from a device-memory scratch, where the H100 runs them
+    slower than the plain chain; PERF.md)."""
+    if M < 32 or M > 512 or M % 8 != 0:
+        return False
+    TB = _time_block(M)
+    work = 4 * TB * M * M * (max(order - 1, 1) + scaling + 4)
+    return work < 40 * (1 << 20)
+
+
+def fused_expm_reference(A: torch.Tensor, order: int,
+                         scaling: int) -> torch.Tensor:
+    """Plain version of kernel 7: the port's ``taylor_expm``."""
+    return taylor_expm(A, order, scaling)
+
+
+def fused_expm_backward_reference(A: torch.Tensor, Ebar: torch.Tensor,
+                                  order: int, scaling: int) -> torch.Tensor:
+    """Plain version of kernel 8: the cotangent of A given Ebar, the
+    cotangent of ``taylor_expm(A, order, scaling)``."""
+    inv = 1.0 / (2.0 ** scaling)
+    A = A * inv
+    an = [A]                     # A^1 .. A^(order-1)
+    E = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device) + A
+    An = A
+    factorial = 1.0
+    for n in range(2, order + 1):
+        factorial *= n
+        An = torch.matmul(A, An)
+        if n < order:
+            an.append(An)
+        E = E + An / factorial
+    sq = []                      # the pre-squaring E's
+    for s in range(scaling):
+        sq.append(E)
+        if s + 1 < scaling:
+            E = torch.matmul(E, E)
+    for Es in reversed(sq):
+        Ebar = torch.matmul(Ebar, Es.mT) + torch.matmul(Es.mT, Ebar)
+    anbar = Ebar * (1.0 / factorial)
+    Abar = torch.zeros_like(A)
+    fac_n = factorial
+    for n in range(order, 1, -1):
+        Abar = Abar + torch.matmul(anbar, an[n - 2].mT)
+        fac_n = fac_n / n
+        anbar = torch.matmul(A.mT, anbar) + Ebar * (1.0 / fac_n)
+    return (Abar + anbar) * inv
+
+
+def _fold(x: torch.Tensor, bdim, batch_size: int) -> torch.Tensor:
+    """A vmapped operand [..B.., T, M, M] as one batch [B*T, M, M] of
+    timesteps (``bdim`` None: the same operand for every vmapped entry)."""
+    x = (x.expand(batch_size, *x.shape) if bdim is None
+         else x.movedim(bdim, 0))
+    return x.reshape(-1, *x.shape[-2:])
+
+
+def _unfold(x: torch.Tensor, batch_size: int) -> torch.Tensor:
+    return x.reshape(batch_size, -1, *x.shape[-2:])
+
+
+class _ExpmBackward(torch.autograd.Function):
+    """Kernel 8 on a CUDA tensor, its plain version on the CPU.  A
+    Function of its own so that ``torch.func.vmap`` over a gradient (the
+    batch layer's vmapped backend) folds the seeds into the timesteps and
+    launches it once."""
+
+    @staticmethod
+    def forward(A, Ebar, order, scaling):
+        if A.device.type == "cpu":
+            return fused_expm_backward_reference(A, Ebar, order, scaling)
+        return _cuda.expm_backward(A.contiguous(), Ebar.contiguous(), order,
+                                   scaling)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "fused_taylor_expm is differentiable once (no second derivative)")
+
+    @staticmethod
+    def vmap(info, in_dims, A, Ebar, order, scaling):
+        Abar = _ExpmBackward.apply(_fold(A, in_dims[0], info.batch_size),
+                                   _fold(Ebar, in_dims[1], info.batch_size),
+                                   order, scaling)
+        return _unfold(Abar, info.batch_size), 0
+
+
+class _FusedTaylorExpm(torch.autograd.Function):
+    """Kernels 7 and 8 on a CUDA tensor; the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(A, order, scaling):
+        if A.device.type == "cpu":
+            return fused_expm_reference(A, order, scaling)
+        return _cuda.expm_forward(A.contiguous(), order, scaling)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        A, order, scaling = inputs
+        ctx.save_for_backward(A)
+        ctx.order, ctx.scaling = order, scaling
+
+    @staticmethod
+    def backward(ctx, Ebar):
+        (A,) = ctx.saved_tensors
+        return _ExpmBackward.apply(A, Ebar, ctx.order, ctx.scaling), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, A, order, scaling):
+        E = _FusedTaylorExpm.apply(_fold(A, in_dims[0], info.batch_size),
+                                   order, scaling)
+        return _unfold(E, info.batch_size), 0
+
+
+def fused_taylor_expm(A: torch.Tensor, order: int,
+                      scaling: int) -> torch.Tensor:
+    """exp(A_t) for a batch [T, M, M] of generators; differentiable in A,
+    and under ``torch.func`` transforms (a vmapped batch [B, T, M, M] is
+    one launch of B*T timesteps)."""
+    return _FusedTaylorExpm.apply(A, order, scaling)

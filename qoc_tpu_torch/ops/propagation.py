@@ -1,28 +1,37 @@
-"""Time propagation engines, final-only subset (port of
-``qoc_tpu.ops.propagation``).
+"""Time propagation engines (port of ``qoc_tpu.ops.propagation``).
 
-Engines the port has:
+Engines, with qoc_tpu's names and auto ladders (``resolve_state_engine``,
+``resolve_unitary_engine``, ``pick_engine``):
 
   * ``tree``: the fused chain product (``ops.tree_chain``), the CUDA
-    kernels on the card; final state / unitary only, exact gradients.
-  * ``scan``: the serial chain, a Python loop of small matrix products;
-    serves the analysis forward that needs intermediate states, and every
-    run on the CPU.
+    kernels on the card; final state / unitary only.
+  * ``pscan``: all step propagators as one batched Taylor series, then a
+    serial [M, M] @ [M, V] state sweep, with the matvec-adjoint backward
+    (``pscan_chain``): no M^3 work in the gradient.
+  * ``associative``: the batched step propagators and their prefix
+    products (``prefix_products``, lax.associative_scan's recursion),
+    autograd through both.
+  * ``scan``: the serial chain, a Python loop of small products; every
+    run on the CPU takes it where the ladders say so, as in qoc_tpu.
 
-qoc_tpu's ``associative`` and ``pscan`` engines and the reference-parity
-gradient are not ported yet (ROADMAP.md, Queue 1); asking for them raises
-``NotImplementedError``, and the ladders below never pick them.
+The batched Taylor step (``batched_taylor_expm``: pscan's Q, the
+associative engine's and the unitary chains' step propagators) goes
+through kernels 7-8 (``ops.fused_expm``) on a CUDA tensor wherever
+``fused_expm_supported`` admits the shape, and through the plain
+``taylor_expm`` otherwise, which computes the same function.  qoc_tpu's
+128-lane pad around pscan (a TPU layout trick) and its reference-parity
+gradient are not ported; ``gradient_mode="reference"`` raises
+``NotImplementedError`` (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .expm import taylor_expm, taylor_expm_matvec, weighted_hamiltonians
+from .fused_expm import fused_expm_supported, fused_taylor_expm
 from .tree_chain import fused_tree_chain, tree_chain_supported
-
-_NOT_PORTED = ("engine {!r} is not ported to qoc_tpu_torch yet (see "
-               "ROADMAP.md, Queue 1); use engine='tree' or 'scan'")
 
 
 def _require_exact(gradient_mode: str) -> None:
@@ -33,9 +42,50 @@ def _require_exact(gradient_mode: str) -> None:
             "Queue 1); use gradient_mode='exact'")
 
 
+def batched_taylor_expm(A: torch.Tensor, order: int,
+                        scaling: int) -> torch.Tensor:
+    """``taylor_expm`` of A [T, M, M]: kernels 7-8 on a CUDA tensor that
+    ``fused_expm_supported`` admits, else the plain series (the shapes
+    qoc_tpu's kernel does not take either)."""
+    if (A.device.type == "cuda" and A.dim() == 3
+            and fused_expm_supported(A.shape[-1], order, scaling)):
+        return fused_taylor_expm(A, order, scaling)
+    return taylor_expm(A, order, scaling)
+
+
 def step_propagators(mats, weights, order: int, scaling: int):
     """All per-step propagators exp(sum_k w[k,t] mats[k]): [K,M,M], [K,T] -> [T,M,M]."""
-    return taylor_expm(weighted_hamiltonians(mats, weights), order, scaling)
+    return batched_taylor_expm(weighted_hamiltonians(mats, weights), order,
+                               scaling)
+
+
+# ---------------------------------------------------------------------------
+# Unitary-mode chains
+# ---------------------------------------------------------------------------
+
+
+def prefix_products(P: torch.Tensor) -> torch.Tensor:
+    """cum[t] = P[t] @ ... @ P[0] for P [T, M, M], the later factor on the
+    left: lax.associative_scan's recursion (pairs, recurse on the pair
+    products, fill in the even entries), O(T) products in O(log T)
+    depth."""
+    n = P.shape[0]
+    if n < 2:
+        return P
+    odd = prefix_products(torch.matmul(P[1::2], P[0:n - 1:2]))
+    even = torch.matmul(P[2::2], odd[:-1] if n % 2 == 0 else odd)
+    even = torch.cat([P[:1], even])
+    pairs = torch.stack([even[:odd.shape[0]], odd], dim=1).flatten(0, 1)
+    return torch.cat([pairs, even[odd.shape[0]:]])
+
+
+def chain_associative(P, U0, psi0):
+    """Cumulative products by the parallel prefix: (final_U [M, M],
+    inter_vecs [T+1, M, V]) with inter_states[t] = P_t ... P_0 U0
+    (tensorflow_state.py:214-220); entry 0 is the raw psi0."""
+    cumU = torch.matmul(prefix_products(P), U0)
+    vecs = torch.matmul(cumU, psi0)
+    return cumU[-1], torch.cat([psi0[None], vecs])
 
 
 def chain_scan(P, U0, psi0):
@@ -72,33 +122,196 @@ def chain_product_tree(P):
     return P[0]
 
 
+# ---------------------------------------------------------------------------
+# Engine ladders (qoc_tpu/ops/propagation.py:179-211, 633-641; the
+# thresholds are qoc_tpu's, kept so that both packages route alike)
+# ---------------------------------------------------------------------------
+
+
 def pick_engine(dim_real: int, steps: int) -> str:
-    """The unitary fallback rung.  qoc_tpu takes its associative engine
-    while T copies of [M, M] fit in ~1 GiB; the port has no associative
-    engine yet, so the serial scan serves every size."""
-    del dim_real, steps
-    return "scan"
+    """The unitary fallback rung: the associative engine while its ~3 T
+    copies of [M, M] stay under 1 GiB of float32, else the serial scan."""
+    bytes_needed = 4 * steps * dim_real * dim_real * 3
+    return "associative" if bytes_needed < (1 << 30) else "scan"
 
 
 def resolve_state_engine(M: int, T: int, gradient_mode: str,
                          final_only: bool, on_accel: bool) -> str:
-    """State-transfer ladder: tree (final-only, exact, on the card, within
-    ``tree_chain_supported``), else scan."""
-    if (gradient_mode == "exact" and on_accel and final_only
-            and tree_chain_supported(M, T)):
-        return "tree"
+    """State-transfer ladder: tree (fused, small, final-only) -> pscan
+    (M >= 16) -> associative (tiny M with trajectory) -> scan (CPU and
+    beyond)."""
+    if gradient_mode == "exact" and on_accel:
+        if final_only and tree_chain_supported(M, T):
+            return "tree"
+        if M >= 16 and 8 * T * M * M < (1 << 31):
+            return "pscan"
+        if 4 * T * M * M * 3 < (1 << 30):
+            return "associative"
     return "scan"
 
 
 def resolve_unitary_engine(M: int, T: int, scaling: int, gradient_mode: str,
                            needs_inter: bool, on_accel: bool) -> str:
-    """Unitary ladder: tree (final-only, exact, on the card), else
-    ``pick_engine``."""
-    del scaling
-    if (gradient_mode == "exact" and on_accel and not needs_inter
-            and tree_chain_supported(M, T)):
-        return "tree"
+    """Unitary ladder: tree (final-only) -> pscan (rank-V adjoint through
+    the squaring expansion, M >= 16) -> ``pick_engine``."""
+    if gradient_mode == "exact" and on_accel:
+        if not needs_inter and tree_chain_supported(M, T):
+            return "tree"
+        reps = 1 << scaling
+        if M >= 16 and 8 * T * reps * M * M < (1 << 31):
+            return "pscan"
     return pick_engine(M, T)
+
+
+# ---------------------------------------------------------------------------
+# The pscan engine
+# ---------------------------------------------------------------------------
+
+
+def _pscan_run(mats, weights, psi0, order: int, reps: int):
+    """Q_t = Taylor_{0..order-1}(A_t / reps) batched, then the serial sweep
+    applying each Q_t ``reps`` times.  Returns (vecs [T*reps+1, M, V], A,
+    Q)."""
+    A = weighted_hamiltonians(mats, weights)
+    if reps > 1:
+        A = A / reps              # exp(A) = Q^reps, Q = Taylor(A / reps)
+    Q = batched_taylor_expm(A, order - 1, 0)
+    return pscan_sweep(Q, psi0, reps), A, Q
+
+
+def pscan_sweep(Q, psi0, reps: int):
+    """The forward sweep: psi <- Q_t psi, ``reps`` times per step, from
+    psi0 [M, V]; the sub-step trajectory [T*reps + 1, M, V]."""
+    psi = psi0
+    vecs = [psi0]
+    for Qt in Q.unbind(0):
+        for _ in range(reps):
+            psi = torch.matmul(Qt, psi)
+            vecs.append(psi)
+    return torch.stack(vecs)
+
+
+def pscan_reverse_sweep(Q, g, reps: int):
+    """The adjoint sweep over sub-steps i = T*reps-1 .. 0: lam_i = mu + g_i
+    (the full cotangent of the state after sub-step i), then mu = Q_t^T
+    lam_i.  g [T*reps + 1, M, V] -> (lams [T, reps, M, V], psi0_bar)."""
+    T = Q.shape[0]
+    gsub = g[1:]
+    QT = Q.mT.unbind(0)
+    mu = torch.zeros_like(g[0])
+    lams = [None] * (T * reps)
+    for i in range(T * reps - 1, -1, -1):
+        lam = mu + gsub[i]
+        lams[i] = lam
+        mu = torch.matmul(QT[i // reps], lam)
+    return torch.stack(lams).reshape(T, reps, *g.shape[1:]), mu + g[0]
+
+
+def _coefficients(q: int, like: torch.Tensor) -> torch.Tensor:
+    """C[j, l] = 1 / (j + l + 1)! where j + l + 1 <= q, else 0."""
+    fact = np.ones(2 * q, dtype=np.float64)
+    for n in range(1, 2 * q):
+        fact[n] = fact[n - 1] * n
+    C = np.zeros((q, q), dtype=np.float32)
+    for j in range(q):
+        for l in range(q):
+            if j + l + 1 <= q:
+                C[j, l] = 1.0 / fact[j + l + 1]
+    return torch.as_tensor(C, dtype=like.dtype, device=like.device)
+
+
+def pscan_pairing(mats, weights, A, vecs, lams, q: int, reps: int):
+    """The batched part of the adjoint: power ladders f_l = A^l psi_prev
+    and b_j = (A^T)^j lam over every sub-step, the pairing Abar_t =
+    sum_r sum_{j+l+1 <= q} b_j f_l^T / (j+l+1)!, then (matsbar, wbar)."""
+    T, M, V = A.shape[0], vecs.shape[1], vecs.shape[2]
+    pre = vecs[:-1].reshape(T, reps, M, V)   # states before each sub-step
+
+    def ladder(A_, x0):               # [T, reps, M, V] -> [T, reps, q, M, V]
+        xs = [x0]
+        for _ in range(1, q):
+            xs.append(torch.matmul(A_[:, None], xs[-1]))
+        return torch.stack(xs, dim=2)
+
+    F = ladder(A, pre)                # f_l = A^l psi_prev
+    B = ladder(A.mT, lams)            # b_j = (A^T)^j lam
+    CF = torch.einsum("jl,trlnv->trjnv", _coefficients(q, A), F)
+    Abar = torch.einsum("trjmv,trjnv->tmn", B, CF)
+    inv = 1.0 / reps                  # dA_scaled/dw = mats / reps
+    wbar = inv * torch.einsum("kmn,tmn->kt", mats, Abar)
+    matsbar = inv * torch.einsum("kt,tmn->kmn", weights, Abar)
+    return matsbar, wbar
+
+
+class _PscanChain(torch.autograd.Function):
+    """``qoc_tpu._pscan_chain_core``: the forward sweep, and the matvec
+    adjoint as its backward.
+
+    The trajectory cotangent against a product chain is rank V per step,
+    so the exact gradient of the truncated series needs no M^3 work: the
+    reverse sweep lam_{i-1} = Q^T lam_i + g_{i-1} (T*reps serial
+    transposed mat-vecs, ``pscan_reverse_sweep``), then the batched power
+    ladders and their pairing (``pscan_pairing``); wbar = <mats_k,
+    Abar_t> / reps and matsbar = sum_t w_kt Abar_t / reps."""
+
+    @staticmethod
+    def forward(ctx, mats, weights, psi0, order, reps):
+        vecs, A, Q = _pscan_run(mats, weights, psi0, order, reps)
+        ctx.save_for_backward(mats, weights, A, Q, vecs)
+        ctx.order, ctx.reps = order, reps
+        return vecs
+
+    @staticmethod
+    def backward(ctx, g):
+        mats, weights, A, Q, vecs = ctx.saved_tensors
+        q = ctx.order - 1                 # highest power kept in Q
+        lams, psi0_bar = pscan_reverse_sweep(Q, g, ctx.reps)
+        if q < 1:
+            return (torch.zeros_like(mats), torch.zeros_like(weights),
+                    psi0_bar, None, None)
+        matsbar, wbar = pscan_pairing(mats, weights, A, vecs, lams, q,
+                                      ctx.reps)
+        return matsbar, wbar, psi0_bar, None, None
+
+
+def pscan_chain(mats, weights, psi0, order: int, reps: int = 1):
+    """Batched-propagator state chain with the matvec-adjoint backward:
+    mats [K, M, M], weights [K, T], psi0 [M, V] -> the sub-step trajectory
+    [T*reps + 1, M, V] (``reps = 2**scaling`` expands the squaring chain
+    into repeated sub-steps; state transfer has reps = 1).
+    Differentiable in mats, weights and psi0."""
+    return _PscanChain.apply(mats, weights, psi0, order, reps)
+
+
+def evolve_unitary_pscan(mats, weights, U0, psi0, order: int, scaling: int,
+                         use_inter_vecs: bool):
+    """Unitary-mode forward through the state-column pscan chain.
+
+    The loss reads the final unitary only through final_vecs = U_total
+    psi0, so the gradient rides the matvec adjoint with 2^s sub-steps per
+    step; unitary_scale = 0.5/N sum(F^T F) = 0.5/N ||F 1||^2 comes from
+    one extra propagated ones-column.  Returns (final_vecs [M, V],
+    unitary_scale, inter_vecs or None)."""
+    reps = 1 << scaling
+    M, V = psi0.shape
+    s0 = torch.matmul(U0, psi0)
+    ones_col = torch.matmul(U0, torch.ones((M, 1), dtype=psi0.dtype,
+                                           device=psi0.device))
+    vecs_all = pscan_chain(mats, weights, torch.cat([s0, ones_col], dim=1),
+                           order + 1, reps)
+    final = vecs_all[-1]
+    unitary_scale = (0.5 / (M // 2)) * torch.sum(torch.square(final[:, V]))
+    inter_vecs = None
+    if use_inter_vecs:
+        # entry 0 is the RAW packed psi0 (tensorflow_state.py:229-242);
+        # entries >= 1 include U0
+        inter_vecs = torch.cat([psi0[None], vecs_all[reps::reps, :, :V]])
+    return final[:, :V], unitary_scale, inter_vecs
+
+
+# ---------------------------------------------------------------------------
+# State transfer and the unitary forward
+# ---------------------------------------------------------------------------
 
 
 def state_transfer_chain(mats, weights, psi0, order: int,
@@ -115,12 +328,21 @@ def state_transfer_chain(mats, weights, psi0, order: int,
         engine = resolve_state_engine(mats.shape[-1], weights.shape[-1],
                                       gradient_mode, final_only,
                                       weights.device.type == "cuda")
-    if engine in ("associative", "pscan"):
-        raise NotImplementedError(_NOT_PORTED.format(engine))
 
     if engine == "tree" and final_only:
         E = fused_tree_chain(mats, weights, order - 1, 0)
         return torch.matmul(E, psi0)[None]
+
+    if engine == "associative":
+        P = step_propagators(mats, weights, order - 1, 0)
+        if final_only:
+            return torch.matmul(chain_product_tree(P), psi0)[None]
+        vecs = torch.matmul(prefix_products(P), psi0)
+        return torch.cat([psi0[None], vecs])
+
+    if engine == "pscan":
+        vecs = pscan_chain(mats, weights, psi0, order, 1)
+        return vecs[-1][None] if final_only else vecs
 
     A = weighted_hamiltonians(mats, weights)
     psi = psi0
@@ -135,17 +357,17 @@ def state_transfer_chain(mats, weights, psi0, order: int,
 
 
 def evolve_unitary(mats, weights, U0, psi0, order: int, scaling: int,
-                   gradient_mode: str = "exact", engine: str = "scan",
+                   gradient_mode: str = "exact", engine: str = "associative",
                    use_inter_vecs: bool = True):
     """Unitary-mode forward: (final_U, inter_vecs or None)."""
     _require_exact(gradient_mode)
-    if engine in ("associative", "pscan"):
-        raise NotImplementedError(_NOT_PORTED.format(engine))
     P = step_propagators(mats, weights, order, scaling)
     if not use_inter_vecs:
         if engine == "scan":
             return chain_scan_novecs(P, U0), None
         return torch.matmul(chain_product_tree(P), U0), None
+    if engine == "associative":
+        return chain_associative(P, U0, psi0)
     return chain_scan(P, U0, psi0)
 
 

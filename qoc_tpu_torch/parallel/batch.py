@@ -30,6 +30,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..interop import entry_device
 from ..models.costs import cost_names, validate_reg_coeffs
 from ..models.forward import make_forward
 from ..optim.adam import BatchAdamState, batched_adam_update, init_batch_adam
@@ -59,12 +60,6 @@ def init_seeds(problem, n_seeds: int, generator: torch.Generator,
     u = torch.randn((n_seeds, problem.ops_len, problem.steps),
                     generator=generator, dtype=torch.float32)
     return (u / np.sqrt(problem.steps)).to(device)
-
-
-def _device(device) -> torch.device:
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    return torch.device(device)
 
 
 def describe_backend(backend: str, device: torch.device,
@@ -135,7 +130,7 @@ def make_batched_runner(problem, conv: ConvergenceSettings,
     if remat:
         raise NotImplementedError(
             "remat is not ported to qoc_tpu_torch yet (see ROADMAP.md)")
-    device = _device(device)
+    device = entry_device(device)
     on_accel = device.type == "cuda"
     if backend == "auto":
         fused = on_accel and gradient_mode == "exact" and not sweep_mats
@@ -235,8 +230,8 @@ def batched_grape_adam(problem, n_seeds: int,
 
     Returns qoc_tpu's result dict: per-seed losses, reg_losses and
     pulses, the iteration count, the converged flags and the best seed's
-    physical pulse.  ``device=None`` takes the first CUDA device when
-    torch sees one, else the CPU.
+    physical pulse.  ``device=None`` means the CUDA card (and raises
+    when torch sees none); ``device="cpu"`` runs the plain versions.
 
     Hamiltonian sweeps, two mechanisms:
       * ``mats_batch`` ([S, K+1, 2N, 2N]): per-seed generators, "xla";
@@ -246,7 +241,7 @@ def batched_grape_adam(problem, n_seeds: int,
     """
     validate_reg_coeffs(reg_coeffs, state_num=problem.state_num)
     conv = ConvergenceSettings.from_dict(convergence)
-    device = _device(device)
+    device = entry_device(device)
     sweep = mats_batch is not None
     if sweep and extra_channels is not None:
         raise ValueError("pass either mats_batch or extra_channels, not both")

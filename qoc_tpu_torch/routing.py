@@ -10,9 +10,12 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+import torch
+
 from .models.forward import INTER_VEC_COSTS
 from .ops._cuda import (MAX_K, MAX_V, MAX_V_TRAJ, SMEM_LIMIT,
                         SUPPORTED_M, chain_fits)
+from .ops.propagation import resolve_state_engine, resolve_unitary_engine
 from .ops.tree_chain import tree_chain_supported
 
 
@@ -67,3 +70,29 @@ def fused_fallback_reasons(problem, reg_coeffs: Optional[dict],
                        f"kernels' bounds (at most {MAX_K}, within "
                        f"{SMEM_LIMIT} bytes of shared memory)")
     return reasons or ["unsupported cost combination for the fused kernels"]
+
+
+def resolve_single_engine(problem, reg_coeffs, gradient_mode: str,
+                          engine: str, lean: bool = True,
+                          device="cuda") -> str:
+    """The engine the per-iteration ``Grape`` forward resolves to on
+    ``device``: the same ladders ``models.forward`` uses (qoc_tpu/
+    routing.py:77-106, where the device is JAX's default backend)."""
+    p = problem
+    M = 2 * p.state_num
+    if lean:
+        needs_inter = p.use_inter_vecs and any(
+            k in (reg_coeffs or {}) for k in INTER_VEC_COSTS)
+    else:
+        needs_inter = p.use_inter_vecs
+    on_accel = torch.device(device).type == "cuda"
+    if engine != "auto":
+        return engine
+    if p.state_transfer:
+        return resolve_state_engine(M, p.steps, gradient_mode,
+                                    not needs_inter, on_accel)
+    if gradient_mode != "exact":
+        return resolve_unitary_engine(M, p.steps, 0, "reference",
+                                      needs_inter, False)
+    return resolve_unitary_engine(M, p.steps, p.taylor_scaling,
+                                  gradient_mode, needs_inter, on_accel)

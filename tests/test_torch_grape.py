@@ -105,6 +105,24 @@ def test_save_without_h5py_raises(monkeypatch, tmp_path):
                  data_path=str(tmp_path), device="cpu", **kwargs)
 
 
+@pytest.mark.parametrize("entry", ["grape", "batched_grape_adam"])
+def test_device_none_needs_the_card(entry, monkeypatch):
+    """``device=None`` runs on the CUDA card: without one the entry points
+    raise instead of carrying on on the CPU."""
+    from qoc_tpu_torch.models.system import ControlProblem
+    from qoc_tpu_torch.parallel.batch import batched_grape_adam
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args, kwargs = _pi_pulse()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "grape":
+            qt.Grape(*args, convergence=CONV, save=False, show_plots=False,
+                     **kwargs)
+        else:
+            batched_grape_adam(ControlProblem.build(*args, **kwargs), 2,
+                               convergence=CONV)
+
+
 @pytest.mark.parametrize("extra", [
     {"method": "L-BFGS-B"},
     {"resume_from": "run.h5"},
@@ -165,9 +183,16 @@ def test_penalty_routing_on_cpu(capsys):
     assert qt.Grape(*args, engine="mega", **common).engine == (
         "mega (plain torch segment reference on cpu, penalties: "
         "forbidden, dwdt)")
-    assert qt.Grape(*args, **common).engine == "scan"
+    # the engine qoc_tpu resolves the same problem to on its CPU backend
+    from qoc_tpu.models.system import ControlProblem as JProblem
+    from qoc_tpu.routing import resolve_single_engine
+
+    want = resolve_single_engine(JProblem.build(*args, **kwargs), rc,
+                                 "exact", "auto", lean=True)
+    assert want == "associative"
+    assert qt.Grape(*args, **common).engine == want
     out = capsys.readouterr().out
-    assert "[qoc-tpu-torch] engine: scan (fallback: cpu device" in out
+    assert f"[qoc-tpu-torch] engine: {want} (fallback: cpu device" in out
     with pytest.raises(KeyError, match="did you mean 'dwdt'"):
         qt.Grape(*args, **dict(common, reg_coeffs={"dwdtt": 0.1}))
     with pytest.raises(ValueError, match="states_forbidden_list"):
