@@ -40,11 +40,18 @@ Phases (each prints one line with its numbers; any failed check raises):
   8. the pscan and associative engines on the transmon-cavity job
      (examples/jobs/transmon_cavity.json, BASELINE config 4: M = 120,
      T = 1000): 8a the batched Taylor kernels 7 and 8 against their plain
-     versions at config 4's generators and at M = 32 (T = 7), 256 and 512;
-     8b pscan, associative and scan at config 4's iteration 0, and the
-     pscan iteration in parts; 8c ``Grape`` on the job, ``engine="auto"``
-     (routed to pscan, kernel 7), its 5000 iterations; 8d the same with
-     ``engine="associative"`` (kernels 7 and 8), 20 iterations.
+     versions at config 4's generators, at M = 32 (T = 7), at M = 256
+     (order 8, s 2) for T = 64 and 512 and at M = 512 (order 6, s 1) for T
+     = 64 and 256, with the Horner reference's error and each case's
+     scratch bytes; 8b pscan, associative and scan at config 4's iteration
+     0, and the pscan iteration in parts; 8c ``Grape`` on the job,
+     ``engine="auto"`` (routed to pscan, kernel 7), 2000 of its 5000
+     iterations; 8d the same with ``engine="associative"`` (kernels 7 and
+     8), 20 iterations; 8e the engines under ``torch.func``: kernel 8's
+     scratch on config 4 folded to T = 16000 (none), ``batched_grape_adam``
+     on config 4 (backend "xla", 16 seeds, 3 iterations) with engine
+     "associative" and "pscan", and the pi pulse (4 seeds) with engine
+     "tree" against "scan".
 
 Every kernel's entry in the kernels line carries its bound: the larger of
 its operations over 67 TFLOP/s (float32 outside the tensor cores) and its
@@ -861,12 +868,16 @@ def phase_batch(dev, problems) -> dict:
 # ---- the pscan and associative engines, kernels 7-8 (phase 8) --------------
 
 CONFIG4 = os.path.join(HERE, "examples", "jobs", "transmon_cavity.json")
-# 8c's bar on 1 - loss after the job's 5000 iterations (qoc_tpu reaches
-# 0.99987751 on the CPU, 0.99990577 on a TPU, PARITY.md:188)
+# 8c's bar on 1 - loss, after 2000 of the job's 5000 iterations (the cut
+# keeps the script in its time limit; 1000 iterations reached 0.99970 on
+# the card, and qoc_tpu reaches 0.99987751 in 5000 on the CPU, 0.99990577
+# on a TPU, PARITY.md:188)
 CONFIG4_BAR = 0.999
+CONFIG4_ITERATIONS = 2000
 # 8a's shapes: (name, T, M, order, scaling); config 4's comes from its job
 EXPM_CASES = [("config4", 1000, 120, 14, 0), ("m32_tail", 7, 32, 12, 3),
-              ("m256", 64, 256, 8, 2), ("m512", 64, 512, 6, 1)]
+              ("m256", 64, 256, 8, 2), ("m512", 64, 512, 6, 1),
+              ("m256_t512", 512, 256, 8, 2), ("m512_t256", 256, 512, 6, 1)]
 
 
 def _config4():
@@ -917,7 +928,8 @@ def phase_expm(dev, p4) -> dict:
 
     from qoc_tpu_torch.ops import _cuda
     from qoc_tpu_torch.ops.fused_expm import (
-        fused_expm_backward_reference, fused_expm_reference)
+        fused_expm_backward_horner, fused_expm_backward_reference,
+        fused_expm_reference)
 
     rng = np.random.default_rng(8)
     worst = {"expm_forward": 0.0, "expm_backward": 0.0}
@@ -941,13 +953,23 @@ def phase_expm(dev, p4) -> dict:
         E_64 = fused_expm_reference(A.double(), order, s)
         Ab_64 = fused_expm_backward_reference(A.double(), G.double(), order,
                                               s)
+        # kernel 8's association order in plain torch, against the same bar
+        horner_rel = _rel(fused_expm_backward_horner(A, G, order, s), Ab_r)
+        scratch = {k: _cuda.expm_scratch_bytes(T, M, order, s, k)
+                   for k in ("forward", "backward")}
+        # the launch's own count (expm_scratch_floats in expm.cuh) agrees
+        c_scratch = {k: 4 * _cuda._library().qoc_expm_scratch_floats(
+            T, M, s, int(k == "backward")) for k in scratch}
         torch.cuda.synchronize()
         fwd_rel, bwd_rel = _rel(E_k, E_r), _rel(Ab_k, Ab_r)
-        if not (fwd_rel <= 2e-5 and bwd_rel <= 1e-4):
+        if not (fwd_rel <= 2e-5 and bwd_rel <= 1e-4 and horner_rel <= 1e-4
+                and c_scratch == scratch):
             raise AssertionError(
                 f"expm kernels disagree on {name} (T={T} M={M} order={order} "
                 f"s={s}): forward rel {fwd_rel:.3e} (<= 2e-5), backward rel "
-                f"{bwd_rel:.3e} (<= 1e-4)")
+                f"{bwd_rel:.3e} (<= 1e-4), Horner reference rel "
+                f"{horner_rel:.3e} (<= 1e-4), scratch bytes {scratch} "
+                f"(launch: {c_scratch})")
         worst["expm_forward"] = max(worst["expm_forward"], _abs(E_k, E_r))
         worst["expm_backward"] = max(worst["expm_backward"], _abs(Ab_k, Ab_r))
         reps = 10 if T * M ** 3 < 5e9 else 3
@@ -970,7 +992,9 @@ def phase_expm(dev, p4) -> dict:
               bwd_max_rel_err=bwd_rel, fwd_kernel_vs_f64=_rel(E_k, E_64),
               fwd_plain_vs_f64=_rel(E_r, E_64),
               bwd_kernel_vs_f64=_rel(Ab_k, Ab_64),
-              bwd_plain_vs_f64=_rel(Ab_r, Ab_64),
+              bwd_plain_vs_f64=_rel(Ab_r, Ab_64), horner_vs_plain=horner_rel,
+              fwd_scratch_bytes=scratch["forward"],
+              bwd_scratch_bytes=scratch["backward"],
               fwd_gflop_per_s=2 * fwd_macs / t["fwd_ms"] / 1e6,
               bwd_gflop_per_s=2 * bwd_macs / t["bwd_ms"] / 1e6, **t)
     return {"worst": worst, "times": out}
@@ -1061,7 +1085,8 @@ def phase_config4(dev, job, p4) -> dict:
 
     reg0 = _reg_loss_at_start({"kwargs": job}, p4)
     conv = job["convergence"]
-    runs = [("auto", conv), ("associative", dict(conv, max_iterations=20))]
+    runs = [("auto", dict(conv, max_iterations=CONFIG4_ITERATIONS)),
+            ("associative", dict(conv, max_iterations=20))]
     totals = dict.fromkeys(_cuda.LAUNCHES, 0)
     failures = []
     for engine, c in runs:
@@ -1098,6 +1123,141 @@ def phase_config4(dev, job, p4) -> dict:
         if not ok:
             failures.append(f"Grape on config 4 (engine={engine!r}): {bar}, "
                             f"reg_loss {res.reg_loss:.4e} (< {reg0:.4e})")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return totals
+
+
+FOLD_SEEDS = 16    # 8e (i): config 4's timesteps folded as 16 vmapped seeds
+BATCH_SEEDS = 16   # 8e (i)-(ii): config 4 seeds through the vmapped backend
+PI_SEEDS = 4       # 8e (iii)
+
+
+def _iteration_zero_losses(batched_grape_adam, p, S, engine, conv, rc,
+                           dev):
+    """batched_grape_adam(backend="xla", engine=...) with a progress line
+    per iteration: (result, per-seed losses at iteration 0, wall s)."""
+    seen = []
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        res = batched_grape_adam(
+            p, S, convergence=dict(conv, update_step=1), reg_coeffs=rc,
+            seed=0, backend="xla", engine=engine, device=dev,
+            progress=lambda it, losses, done: seen.append(losses))
+    return res, seen[0], time.perf_counter() - t0
+
+
+def phase_torch_func(dev, job, p4) -> dict:
+    """8e: the engines under torch.func (the batch layer's vmapped "xla"
+    backend) on the card.  (i) kernel 8 on config 4 folded to T = 16000
+    takes no memory beyond its output, and batched_grape_adam on config 4
+    with engine "associative" launches kernels 7 and 8 every iteration;
+    (ii) the same with engine "pscan" starts from the same losses; (iii)
+    the pi pulse with engine "tree" launches the tree kernels and matches
+    engine "scan" (losses rel 1e-5, gradients max|dg| <= 5e-4 max|g|).
+    Launch counts are reset just before each run and read just after;
+    returns their sums."""
+    import torch
+
+    from qoc_tpu_torch.models.forward import make_forward
+    from qoc_tpu_torch.ops import _cuda
+    from qoc_tpu_torch.parallel.batch import batched_grape_adam, init_seeds
+
+    totals = dict.fromkeys(_cuda.LAUNCHES, 0)
+    order = p4.taylor_terms - 1
+    A = _config4_generators(p4, dev).contiguous().repeat(FOLD_SEEDS, 1, 1)
+    G = torch.randn_like(A)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    Abar = _cuda.expm_backward(A, G, order, 0)
+    torch.cuda.synchronize()
+    beyond = torch.cuda.max_memory_allocated() - base - _nbytes(Abar)
+    want = _cuda.expm_scratch_bytes(A.shape[0], A.shape[1], order, 0,
+                                    "backward")
+    fold_ms = _timed_ms(lambda: _cuda.expm_backward(A, G, order, 0), 2)
+    del A, G, Abar
+    torch.cuda.empty_cache()
+    _line("phase8e_fold", T=FOLD_SEEDS * p4.steps, M=2 * p4.state_num,
+          order=order, bytes_beyond_output=beyond, scratch_bytes=want,
+          expm_backward_ms=fold_ms)
+    failures = []
+    if beyond != want:
+        failures.append(f"kernel 8 on T={FOLD_SEEDS * p4.steps} took "
+                        f"{beyond} bytes beyond its output (want {want})")
+
+    rc = job["reg_coeffs"]
+    conv = dict(job["convergence"], max_iterations=3)
+    runs = {}
+    for engine in ("associative", "pscan"):
+        _cuda.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res, loss0, wall = _iteration_zero_losses(
+            batched_grape_adam, p4, BATCH_SEEDS, engine, conv, rc, dev)
+        launches = dict(_cuda.LAUNCHES)
+        for kname, cnt in launches.items():
+            totals[kname] += cnt
+        runs[engine] = loss0
+        peak = torch.cuda.max_memory_allocated()
+        _line("phase8e_batch", problem="transmon_cavity", engine=engine,
+              seeds=BATCH_SEEDS, iterations=res["iterations"], wall_s=wall,
+              peak_memory_bytes=peak, losses_iteration_0=loss0.tolist(),
+              best_loss=res["best_loss"], launches=launches)
+        ok = (res["uks"].shape == (BATCH_SEEDS, p4.ops_len, p4.steps)
+              and np.all(np.isfinite(res["uks"]))
+              and res["iterations"] >= conv["max_iterations"])
+        if engine == "associative":
+            it = res["iterations"]
+            ok = (ok and launches["expm_forward"] >= it
+                  and launches["expm_backward"] >= it)
+        if not ok:
+            failures.append(f"batched_grape_adam on config 4 with engine "
+                            f"{engine!r}: {res['iterations']} iterations, "
+                            f"launches {launches}")
+    rel = float(np.max(np.abs(runs["pscan"] - runs["associative"])
+                       / np.abs(runs["associative"])))
+    _line("phase8e_pscan", losses_iteration_0_rel_vs_associative=rel)
+    if not rel <= 1e-5:
+        failures.append(f"config 4's iteration-0 losses, pscan against "
+                        f"associative: rel {rel:.3e} (<= 1e-5)")
+
+    # (iii) the pi pulse through the tree kernels' vmap rules
+    p = _pi05()
+    u0 = init_seeds(p, PI_SEEDS, torch.Generator().manual_seed(0), dev)
+    grads = {}
+    for engine in ("tree", "scan"):
+        _, loss_fn = make_forward(p, engine=engine, lean=True, device=dev)
+        grads[engine] = torch.func.vmap(torch.func.grad(
+            lambda u: loss_fn(u)[0]))(u0)
+    g_rel = float((grads["tree"] - grads["scan"]).abs().max()
+                  / grads["scan"].abs().max())
+    losses = {}
+    pi_conv = dict(PI05_CONV, max_iterations=3)
+    for engine in ("tree", "scan"):
+        _cuda.reset_launch_counts()
+        res, loss0, wall = _iteration_zero_losses(
+            batched_grape_adam, p, PI_SEEDS, engine, pi_conv, None, dev)
+        launches = dict(_cuda.LAUNCHES)
+        for kname, cnt in launches.items():
+            totals[kname] += cnt
+        losses[engine] = loss0
+        _line("phase8e_tree", problem="pi_pulse", engine=engine,
+              seeds=PI_SEEDS, iterations=res["iterations"], wall_s=wall,
+              losses_iteration_0=loss0.tolist(), best_loss=res["best_loss"],
+              launches=launches)
+        if engine == "tree" and not (launches["tree_forward"] >= 1
+                                     and launches["tree_backward"] >= 1):
+            failures.append(f"batched_grape_adam on the pi pulse with engine "
+                            f"'tree' launched {launches}")
+    l_rel = float(np.max(np.abs(losses["tree"] - losses["scan"])
+                         / np.abs(losses["scan"])))
+    _line("phase8e_tree_vs_scan", losses_iteration_0_rel=l_rel,
+          grad_max_abs_diff_over_max=g_rel)
+    if not (l_rel <= 1e-5 and g_rel <= 5e-4):
+        failures.append(f"pi pulse, tree against scan: iteration-0 losses rel "
+                        f"{l_rel:.3e} (<= 1e-5), max|dg| / max|g| {g_rel:.3e}"
+                        f" (<= 5e-4)")
     if failures:
         raise AssertionError("; ".join(failures))
     return totals
@@ -1215,6 +1375,7 @@ def main() -> int:
         expm = phase_expm(dev, p4)
         phase_engines(dev, job, p4)
         expm_launches = phase_config4(dev, job, p4)
+        phase_torch_func(dev, job, p4)
         _line("phase8", wall_s=time.perf_counter() - t0)
         c4 = expm["times"]["config4"]
         kernels += [

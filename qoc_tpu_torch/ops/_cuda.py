@@ -34,7 +34,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / ".torch_ext_build"
 SOURCES = ("tree_chain.cu", "mega.cu", "mega_costs.cu", "state_chain.cu",
            "mega_batch.cu", "mega_batch_costs.cu", "expm.cu")
 HEADERS = ("tree_chain.cuh", "mega.cuh", "state_chain.cuh", "mega_batch.cuh",
-           "expm.cuh")
+           "expm.cuh", "sm90.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -46,6 +46,8 @@ MAX_V_TRAJ = 8             # kMaxVTraj in mega.cuh (trajectory mode)
 MAX_K = 16                 # kMaxK in state_chain.cuh (generators per step)
 MAX_V_BATCH = 8            # kMaxVBatch in mega_batch.cuh
 EXPM_SHARED_MAX_M = 120    # kExpmSharedMaxM in expm.cuh
+EXPM_MAX_GRID = 264        # kExpmMaxGrid in expm.cuh (two blocks per SM)
+EXPM_SLOTS = {"forward": 3, "backward": 5}   # kForwardSlots, kBackwardSlots
 
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES = {"tree_forward": 0, "tree_backward": 0, "mega_segment": 0,
@@ -172,9 +174,13 @@ def _library():
             lib.qoc_mega_batch_segment.argtypes = batch + [_P]
             lib.qoc_mega_batch_segment_costs.argtypes = batch + [
                 ctypes.POINTER(BatchCostArgs), _P]
-            lib.qoc_expm_forward.argtypes = [_P, _I, _I, _I, _I, _P, _P, _P]
+            _L = ctypes.c_long
+            lib.qoc_expm_forward.argtypes = [_P, _I, _I, _I, _I, _P, _P, _L,
+                                             _P]
             lib.qoc_expm_backward.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P,
-                                              _P]
+                                              _L, _P]
+            lib.qoc_expm_scratch_floats.argtypes = [_I, _I, _I, _I]
+            lib.qoc_expm_scratch_floats.restype = _L
             lib.qoc_error_string.argtypes = [_I]
             lib.qoc_error_string.restype = ctypes.c_char_p
             for fn in (lib.qoc_tree_forward, lib.qoc_tree_backward,
@@ -521,19 +527,40 @@ def mega_batch_segment(mats, maxamp, psi0, tgt, ew, u, m, v, itc, done, *,
     return stats
 
 
-def expm_backward_slots(order: int, scaling: int) -> int:
-    """M x M buffers per timestep of kernel 8's scratch
-    (``expm_backward_slots`` in expm.cuh)."""
-    return max(order - 2, 0) + scaling + 6
+def expm_scratch_bytes(T: int, M: int, order: int, scaling: int,
+                       kind: str) -> int:
+    """Bytes of device scratch kernel 7 (``kind="forward"``) or kernel 8
+    (``"backward"``) takes for A [T, M, M] (``expm_scratch_floats`` in
+    expm.cuh, which the launch checks it against).  Zero on the shared
+    path (kernel 7 at M <= 120; kernel 8 at M <= 120 with s = 0); on the
+    staged path a few M x M slots per resident block, at most
+    ``EXPM_MAX_GRID`` blocks, so it stops growing with T there.  ``order``
+    does not enter: no power of A is stored."""
+    if kind not in EXPM_SLOTS:
+        raise ValueError(f"kind is 'forward' or 'backward', not {kind!r}")
+    backward = kind == "backward"
+    if M <= EXPM_SHARED_MAX_M and (not backward or scaling == 0):
+        return 0
+    slots = EXPM_SLOTS[kind] + (scaling if backward else 0)
+    return min(T, EXPM_MAX_GRID) * slots * M * M * 4
 
 
 def _check_expm(A, order: int, scaling: int):
     T, M, M2 = A.shape
-    if M != M2 or M < 8 or M % 8 or T < 1 or order < 0 or scaling < 0:
+    if (M != M2 or M < 8 or M % 8 or T < 1 or order < 0 or scaling < 0
+            or scaling > 30):
         raise ValueError(f"expm kernels take A [T >= 1, M, M] with M a "
                          f"multiple of 8 (got {tuple(A.shape)}, order "
                          f"{order}, scaling {scaling})")
     return T, M
+
+
+def _expm_scratch(T: int, M: int, order: int, scaling: int, kind: str,
+                  dev: torch.device) -> torch.Tensor:
+    """The launch's scratch, empty on the shared path (a null pointer);
+    the caller keeps it alive across the launch."""
+    return torch.empty(expm_scratch_bytes(T, M, order, scaling, kind) // 4,
+                       dtype=torch.float32, device=dev)
 
 
 def expm_forward(A, order: int, scaling: int):
@@ -541,11 +568,10 @@ def expm_forward(A, order: int, scaling: int):
     dev = _check(A)
     T, M = _check_expm(A, order, scaling)
     E = torch.empty_like(A)
-    scratch = (None if M <= EXPM_SHARED_MAX_M else
-               torch.empty((T, 4, M, M), dtype=torch.float32, device=dev))
+    scratch = _expm_scratch(T, M, order, scaling, "forward", dev)
     code = _library().qoc_expm_forward(
-        A.data_ptr(), T, M, order, scaling, E.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), _stream(dev))
+        A.data_ptr(), T, M, order, scaling, E.data_ptr(), scratch.data_ptr(),
+        4 * scratch.numel(), _stream(dev))
     _raise_on(code, "expm_forward")
     LAUNCHES["expm_forward"] += 1
     return E
@@ -560,11 +586,10 @@ def expm_backward(A, Ebar, order: int, scaling: int):
         raise ValueError(f"Ebar {tuple(Ebar.shape)} does not match A "
                          f"{tuple(A.shape)}")
     Abar = torch.empty_like(A)
-    scratch = torch.empty((T, expm_backward_slots(order, scaling), M, M),
-                          dtype=torch.float32, device=dev)
+    scratch = _expm_scratch(T, M, order, scaling, "backward", dev)
     code = _library().qoc_expm_backward(
         A.data_ptr(), Ebar.data_ptr(), T, M, order, scaling, Abar.data_ptr(),
-        scratch.data_ptr(), _stream(dev))
+        scratch.data_ptr(), 4 * scratch.numel(), _stream(dev))
     _raise_on(code, "expm_backward")
     LAUNCHES["expm_backward"] += 1
     return Abar

@@ -3,19 +3,22 @@
 
     E_t = (sum_{n <= order} (A_t / 2^s)^n / n!)^(2^s),   A [T, M, M]
 
-``fused_taylor_expm`` computes exactly what ``ops.expm.taylor_expm``
-computes (same truncation, association order and squarings) as a
-``torch.autograd.Function``: on a CUDA tensor its forward is kernel 7 and
-its backward kernel 8 (``csrc/expm.cu``, one block per timestep with the
-series kept on chip); on the CPU both are the plain versions below.  The
-propagation engines take it for their batched Taylor step wherever
-``fused_expm_supported`` admits the shape.
+``fused_taylor_expm`` computes what ``ops.expm.taylor_expm`` computes
+(same truncation and squarings) as a ``torch.autograd.Function``: on a
+CUDA tensor its forward is kernel 7 and its backward kernel 8
+(``csrc/expm.cu``: both series by Horner, which keeps no power of A, from
+shared memory up to M = 120 and with products tiled from a scratch sized
+by the resident grid above); on the CPU both are the plain versions
+below.  The propagation engines take it for their batched Taylor step
+wherever ``fused_expm_supported`` admits the shape.
 
 ``fused_expm_reference`` and ``fused_expm_backward_reference`` are the
-plain torch versions: the series with ``torch.matmul``, and the reverse
-sweep of qoc_tpu's ``_bwd_kernel`` (recompute the powers and the
-pre-squaring E's, reverse the squarings as ``Ebar <- Ebar Es^T + Es^T
-Ebar``, then the Taylor reverse).
+plain torch versions that the kernels are held against: the series with
+``torch.matmul``, and the reverse sweep of qoc_tpu's ``_bwd_kernel``
+(recompute the powers and the pre-squaring E's, reverse the squarings as
+``Ebar <- Ebar Es^T + Es^T Ebar``, then the Taylor reverse).
+``fused_expm_backward_horner`` is the same cotangent in kernel 8's
+association order.
 """
 
 from __future__ import annotations
@@ -38,8 +41,8 @@ def fused_expm_supported(M: int, order: int, scaling: int) -> bool:
     """qoc_tpu's admission rule (``pallas_expm.py:36-42``), kept so that
     both packages route alike: 32 <= M <= 512, M % 8 == 0, and a per-block
     working set sized for TPU VMEM.  The CUDA kernels take any M % 8 == 0
-    (above M = 120 from a device-memory scratch, where the H100 runs them
-    slower than the plain chain; PERF.md)."""
+    (above M = 120 from a scratch sized by the resident grid; PERF.md has
+    their times against the plain chain)."""
     if M < 32 or M > 512 or M % 8 != 0:
         return False
     TB = _time_block(M)
@@ -84,6 +87,46 @@ def fused_expm_backward_reference(A: torch.Tensor, Ebar: torch.Tensor,
         fac_n = fac_n / n
         anbar = torch.matmul(A.mT, anbar) + Ebar * (1.0 / fac_n)
     return (Abar + anbar) * inv
+
+
+def fused_expm_backward_horner(A: torch.Tensor, Ebar: torch.Tensor,
+                               order: int, scaling: int) -> torch.Tensor:
+    """The same cotangent as ``fused_expm_backward_reference``, in kernel
+    8's association order, which keeps no power of A.
+
+    With X = (A / 2^s)^T and G the cotangent of the pre-squaring series
+    (Ebar after the squarings' reverse), the Taylor part of Abar is the
+    upper-right block of p([[X, G], [0, X]]), p(B) = sum_{n <= order}
+    B^n / n!, by Horner from the top term: R11 = I, R12 = 0, then for k =
+    order .. 1, R12 <- (X R12 + G R11) / k (with the old R11) and R11 <- I
+    + X R11 / k; Abar = 2^-s R12.  The kernel's plain twin, for tests and
+    ``chip_smoke.py``; nothing on the main path calls it."""
+    inv = 1.0 / (2.0 ** scaling)
+    A = A * inv
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    G = Ebar
+    if scaling:
+        E = eye + A              # the series, then the pre-squaring E's
+        An = A
+        factorial = 1.0
+        for n in range(2, order + 1):
+            factorial *= n
+            An = torch.matmul(A, An)
+            E = E + An / factorial
+        sq = [E]
+        for _ in range(scaling - 1):
+            sq.append(torch.matmul(sq[-1], sq[-1]))
+        for Es in reversed(sq):
+            G = torch.matmul(G, Es.mT) + torch.matmul(Es.mT, G)
+    X = A.mT
+    n = max(order, 1)            # order 0 keeps I + A, as the forward does
+    R12 = G / n
+    R11 = eye + X / n
+    for k in range(n - 1, 0, -1):
+        R12 = (torch.matmul(X, R12) + torch.matmul(G, R11)) / k
+        if k > 1:
+            R11 = eye + torch.matmul(X, R11) / k
+    return R12 * inv
 
 
 def _fold(x: torch.Tensor, bdim, batch_size: int) -> torch.Tensor:

@@ -252,17 +252,32 @@ class _PscanChain(torch.autograd.Function):
     reverse sweep lam_{i-1} = Q^T lam_i + g_{i-1} (T*reps serial
     transposed mat-vecs, ``pscan_reverse_sweep``), then the batched power
     ladders and their pairing (``pscan_pairing``); wbar = <mats_k,
-    Abar_t> / reps and matsbar = sum_t w_kt Abar_t / reps."""
+    Abar_t> / reps and matsbar = sum_t w_kt Abar_t / reps.
+
+    A new-style Function, so that it runs under ``torch.func`` (the batch
+    layer's vmapped backend): the forward returns the intermediates A and
+    Q beside the trajectory, marked non-differentiable, for the backward
+    to reuse (recomputing them would cost a second batched Taylor series),
+    and the vmap rule is generated: forward and backward are torch ops
+    and ``fused_taylor_expm``, whose own rule folds the vmapped seeds into
+    the timesteps, so one batched series serves every seed."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, mats, weights, psi0, order, reps):
-        vecs, A, Q = _pscan_run(mats, weights, psi0, order, reps)
+    def forward(mats, weights, psi0, order, reps):
+        return _pscan_run(mats, weights, psi0, order, reps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        mats, weights, _, order, reps = inputs
+        vecs, A, Q = output
+        ctx.mark_non_differentiable(A, Q)
         ctx.save_for_backward(mats, weights, A, Q, vecs)
         ctx.order, ctx.reps = order, reps
-        return vecs
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _A_bar, _Q_bar):
         mats, weights, A, Q, vecs = ctx.saved_tensors
         q = ctx.order - 1                 # highest power kept in Q
         lams, psi0_bar = pscan_reverse_sweep(Q, g, ctx.reps)
@@ -279,8 +294,9 @@ def pscan_chain(mats, weights, psi0, order: int, reps: int = 1):
     mats [K, M, M], weights [K, T], psi0 [M, V] -> the sub-step trajectory
     [T*reps + 1, M, V] (``reps = 2**scaling`` expands the squaring chain
     into repeated sub-steps; state transfer has reps = 1).
-    Differentiable in mats, weights and psi0."""
-    return _PscanChain.apply(mats, weights, psi0, order, reps)
+    Differentiable in mats, weights and psi0, and under ``torch.func``
+    transforms."""
+    return _PscanChain.apply(mats, weights, psi0, order, reps)[0]
 
 
 def evolve_unitary_pscan(mats, weights, U0, psi0, order: int, scaling: int,

@@ -64,24 +64,77 @@ def tree_chain_reference(mats: torch.Tensor, weights: torch.Tensor,
     return X[0]
 
 
+def _entry(x: torch.Tensor, bdim, b: int) -> torch.Tensor:
+    """Entry ``b`` of a vmapped operand (``bdim`` None: shared by all)."""
+    return x if bdim is None else x.select(bdim, b)
+
+
+class _TreeBackward(torch.autograd.Function):
+    """Kernel 2: the residuals of kernel 1 and gbar [M, M] -> wbar [K, Tp].
+    A Function of its own, so that a vmapped gradient reaches the kernel
+    through the vmap rule below (a raw launch cannot be vmapped)."""
+
+    @staticmethod
+    def forward(mats, an, sq, tree, gbar, order, scaling):
+        return _cuda.tree_backward(*(x.contiguous() for x in (
+            mats, an, sq, tree, gbar)), order, scaling)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "fused_tree_chain is differentiable once (no second derivative)")
+
+    @staticmethod
+    def vmap(info, in_dims, mats, an, sq, tree, gbar, order, scaling):
+        # kernel 2 takes one problem: one launch per batch entry
+        ops = (mats, an, sq, tree, gbar)
+        wbar = torch.stack([
+            _TreeBackward.apply(*(_entry(x, d, b) for x, d in zip(ops,
+                                                                  in_dims)),
+                                order, scaling)
+            for b in range(info.batch_size)])
+        return wbar, 0
+
+
 class _TreeChain(torch.autograd.Function):
-    """Kernels 1 and 2: forward keeps the residuals, backward replays them."""
+    """Kernels 1 and 2: the forward returns the residuals beside E (marked
+    non-differentiable), the backward replays them.  A new-style Function
+    with a vmap rule, so that it runs under ``torch.func`` (the batch
+    layer's vmapped backend): kernel 1 takes one problem, so the rule
+    launches it once per batch entry and stacks the results."""
 
     @staticmethod
-    def forward(ctx, mats, weights, order, scaling):
-        mats = mats.contiguous()
-        w = _pad_lanes(weights).contiguous()
-        E, an, sq, tree = _cuda.tree_forward(mats, w, order, scaling)
+    def forward(mats, weights, order, scaling):
+        return _cuda.tree_forward(mats.contiguous(),
+                                  _pad_lanes(weights).contiguous(), order,
+                                  scaling)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        mats, weights, order, scaling = inputs
+        _, an, sq, tree = output
+        ctx.mark_non_differentiable(an, sq, tree)
         ctx.save_for_backward(mats, an, sq, tree)
-        ctx.order, ctx.scaling, ctx.T = order, scaling, weights.shape[1]
-        return E
+        ctx.order, ctx.scaling, ctx.T = order, scaling, weights.shape[-1]
 
     @staticmethod
-    def backward(ctx, gbar):
+    def backward(ctx, gbar, _an_bar, _sq_bar, _tree_bar):
         mats, an, sq, tree = ctx.saved_tensors
-        wbar = _cuda.tree_backward(mats, an, sq, tree, gbar.contiguous(),
-                                   ctx.order, ctx.scaling)
-        return None, wbar[:, :ctx.T], None, None
+        wbar = _TreeBackward.apply(mats, an, sq, tree, gbar, ctx.order,
+                                   ctx.scaling)
+        return None, wbar[..., :ctx.T], None, None
+
+    @staticmethod
+    def vmap(info, in_dims, mats, weights, order, scaling):
+        outs = [_TreeChain.apply(_entry(mats, in_dims[0], b),
+                                 _entry(weights, in_dims[1], b), order,
+                                 scaling)
+                for b in range(info.batch_size)]
+        return tuple(torch.stack(xs) for xs in zip(*outs)), (0, 0, 0, 0)
 
 
 def fused_tree_chain(mats: torch.Tensor, weights: torch.Tensor, order: int,
@@ -90,8 +143,9 @@ def fused_tree_chain(mats: torch.Tensor, weights: torch.Tensor, order: int,
 
     mats [K, M, M] (row 0 = drift, constant), weights [K, T] (row 0 = 1);
     powers 0..order kept, ``scaling`` squarings.  Differentiable in
-    ``weights`` (exact); ``mats`` gets no gradient on the kernel path.
+    ``weights`` (exact), also under ``torch.func`` transforms; ``mats``
+    gets no gradient on the kernel path.
     """
     if weights.device.type == "cpu":
         return tree_chain_reference(mats, weights, order, scaling)
-    return _TreeChain.apply(mats, weights, order, scaling)
+    return _TreeChain.apply(mats, weights, order, scaling)[0]

@@ -16,8 +16,8 @@ from qoc_tpu.ops.pallas_expm import fused_expm_supported as j_supported
 from qoc_tpu.ops.pallas_expm import fused_taylor_expm as j_expm
 from qoc_tpu_torch.ops import _cuda
 from qoc_tpu_torch.ops.fused_expm import (
-    fused_expm_backward_reference, fused_expm_reference,
-    fused_expm_supported, fused_taylor_expm)
+    fused_expm_backward_horner, fused_expm_backward_reference,
+    fused_expm_reference, fused_expm_supported, fused_taylor_expm)
 
 torch.set_num_threads(1)
 
@@ -60,6 +60,47 @@ def test_vjp_matches_qoc_tpu(order, scaling):
     plain = fused_expm_backward_reference(torch.tensor(A), torch.cos(
         E.detach()), order, scaling)
     np.testing.assert_allclose(plain.numpy(), want, atol=2e-6)
+
+
+@pytest.mark.parametrize("T,M,order,scaling,scale", [
+    (5, 32, 1, 0, 0.05), (5, 32, 3, 0, 0.05), (5, 32, 2, 1, 0.05),
+    (5, 32, 12, 3, 0.05), (5, 32, 6, 2, 0.05),
+    (4, 120, 14, 0, 1.5 / np.sqrt(120))])   # |A| ~ 3, config 4's order
+def test_horner_backward_matches_qoc_tpu(T, M, order, scaling, scale):
+    """Kernel 8's association order (no stored powers) against jax.vjp
+    through qoc_tpu's kernel, within 1e-5 of max|Abar|."""
+    A = _A(T=T, M=M, scale=scale, seed=6)
+    G = _A(T=T, M=M, scale=1.0, seed=7)
+    _, vjp = jax.vjp(lambda a: j_expm(a, order, scaling), jnp.asarray(A))
+    want = np.asarray(vjp(jnp.asarray(G))[0])
+    got = fused_expm_backward_horner(torch.tensor(A), torch.tensor(G), order,
+                                     scaling).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max())
+
+
+def test_scratch_bytes_do_not_grow_with_T():
+    """No scratch at config 4's shape (kernel 7, and kernel 8 at s = 0);
+    for every shape the gate admits, the same bytes at T = 1000 and T =
+    16000 (the vmap rule folds 16 seeds into T); below the resident grid,
+    fewer."""
+    for kind in ("forward", "backward"):
+        assert _cuda.expm_scratch_bytes(1000, 120, 14, 0, kind) == 0
+        assert _cuda.expm_scratch_bytes(16000, 120, 14, 0, kind) == 0
+    assert _cuda.expm_scratch_bytes(1000, 120, 14, 1, "backward") > 0
+    for M in range(32, 513, 8):
+        for order in (2, 8, 14, 20):
+            for scaling in (0, 1, 3):
+                if not fused_expm_supported(M, order, scaling):
+                    continue
+                for kind in ("forward", "backward"):
+                    b = _cuda.expm_scratch_bytes(1000, M, order, scaling,
+                                                 kind)
+                    assert b == _cuda.expm_scratch_bytes(
+                        16000, M, order, scaling, kind), (M, order, kind)
+                    assert _cuda.expm_scratch_bytes(
+                        7, M, order, scaling, kind) <= b
+    assert (_cuda.expm_scratch_bytes(1000, 512, 6, 1, "backward")
+            == _cuda.EXPM_MAX_GRID * 6 * 512 * 512 * 4)
 
 
 def test_vmapped_gradient_matches_qoc_tpu():
