@@ -25,13 +25,16 @@ Phases (each prints one line with its numbers; any failed check raises):
      Launch counts are reset just before each run and read just after;
   5. the state chain kernels (forward and backward) against
      ``state_chain_reference`` at the pi pulse's, the CNOT's and config 3's
-     shapes, and at 130 columns (a partial block);
+     shapes, and at 130 columns (a partial block), with the backward's
+     launch (a team of lanes per column);
   6. the fused batched-optimizer kernel (both instances) against
      ``mega_batch_segment_reference``, 20 iterations: the pi pulse at 512
      seeds with a detuning channel, the CNOT at 64 seeds, config 3 at 64
      seeds, the all-seven ladder and the speed_up/bandpass/forbidden state
      transfer at 16 seeds, and the pi sweep again with every seed frozen
-     mid-segment;
+     mid-segment; each case's line carries the launch geometry (lanes per
+     column, seed groups per block) and the kernel's clock64 split
+     (each phase's share of the blocks' cycles, ``_cuda.CLOCK_PHASES``);
   7. the batched main path: ``batched_grape_adam`` (``backend="auto"``,
      routed to kernel 6) on the pi pulse at 512 seeds
      (examples/05_pod_scale_sweep.py's first program, without its mesh),
@@ -642,9 +645,13 @@ def phase_state_chain(dev, problems) -> dict:
                 out_r, (w, p0), R, retain_graph=True), 2),
         )
         out[name] = t
+        # kernel 5's launch: a team of lanes per column, one warp a block
+        L = _cuda.team_lanes(M)
+        geometry = dict(lanes_per_column=L, threads=_cuda.TEAM_THREADS,
+                        blocks=-(-C * L // _cuda.TEAM_THREADS))
         _line("phase5", problem=name, K=K, M=M, T=T, columns=C, order=order,
               scaling=s, fwd_max_rel_err=fwd_rel, grad_max_rel_err=bwd_rel,
-              **t)
+              bwd_geometry=geometry, **t)
     return {"worst": worst, "times": out}
 
 
@@ -741,6 +748,13 @@ def phase_mega_batch(dev, problems) -> dict:
                 f"{reg_err:.3e} (<= {reg_tol:.3e}), it equal {same_it}, "
                 f"done equal {same_done}")
         seg_ms = _timed_ms(lambda: run(init(u0), n, extra_weights=ew), 1)
+        # one more launch with the clock64 counters: each phase's share of
+        # the blocks' cycles, and the slowest block's cycles per iteration
+        clocks = torch.zeros((k.u_cols.shape[2], len(_cuda.CLOCK_PHASES)),
+                             dtype=torch.int64, device=dev)
+        run(init(u0), n, extra_weights=ew, clocks=clocks)
+        split = _cuda.clock_split(clocks)
+        block_cycles = int(clocks.sum(dim=1).max()) / n
         cm, _, order, s = chain_inputs(p, em, device=dev)
         C = k.u_cols.shape[2]
         bound, by = _bound(
@@ -751,13 +765,15 @@ def phase_mega_batch(dev, problems) -> dict:
                          bound_ms=bound, bound_by=by)
         _line("phase6", problem=name, reg_coeffs=sorted(rc or {}),
               M=2 * p.state_num, T=p.steps, V=V, seeds=S, iterations=n,
+              geometry=_cuda.batch_geometry(2 * p.state_num, V, C)._asdict(),
               u_max_abs_err=u_err, u_tol=u_tol, u_plain_f32_vs_f64=floor,
               loss_max_abs_err=loss_err, reg_loss_max_abs_err=reg_err,
               reg_loss_tol=reg_tol, it_final=sorted(set(
                   k.it_cols[0].tolist())),
               kernel_ms_per_iter=seg_ms / n, plain_ms_per_iter=plain_ms / n,
               bound_ms_per_iter=out[name]["bound_ms"] / n,
-              bound_by=out[name]["bound_by"])
+              bound_by=out[name]["bound_by"], clock_split=split,
+              clock_cycles_per_iter_slowest_block=block_cycles)
     return out
 
 

@@ -5,9 +5,9 @@
 // Replaces the penalty and trajectory branches of
 // qoc_tpu/parallel/pallas_mega_batch.py::_kernel (kernel 6; :265-382,
 // :437-453, :498-508).  The kernel body, its design and its bound are in
-// mega_batch.cuh; this file instantiates mega_batch_kernel<M, true> for the
-// supported M (built in parallel with mega_batch.cu) and holds its C entry
-// point.
+// mega_batch.cuh; this file instantiates mega_batch_kernel<M, KG, true>
+// for the supported M and generator slots (built in parallel with
+// mega_batch.cu) and holds its C entry point.
 
 #include "mega_batch.cuh"
 

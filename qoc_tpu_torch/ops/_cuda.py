@@ -26,6 +26,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -45,9 +46,14 @@ MAX_V = 16                 # kMaxV in mega.cuh
 MAX_V_TRAJ = 8             # kMaxVTraj in mega.cuh (trajectory mode)
 MAX_K = 16                 # kMaxK in state_chain.cuh (generators per step)
 MAX_V_BATCH = 8            # kMaxVBatch in mega_batch.cuh
+TEAM_THREADS = 32          # kTeamThreads in state_chain.cu (kernel 5)
+CHAIN_SMEM_MAX = 232448    # dynamic shared memory a block may opt into
 EXPM_SHARED_MAX_M = 120    # kExpmSharedMaxM in expm.cuh
 EXPM_MAX_GRID = 264        # kExpmMaxGrid in expm.cuh (two blocks per SM)
 EXPM_SLOTS = {"forward": 3, "backward": 5}   # kForwardSlots, kBackwardSlots
+# kernel 6's clock64 phases, in the order of its counters (kClockPhases)
+CLOCK_PHASES = ("sin", "forward", "fidelity", "reverse", "penalties",
+                "gradient", "adam")
 
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES = {"tree_forward": 0, "tree_backward": 0, "mega_segment": 0,
@@ -168,7 +174,7 @@ def _library():
             lib.qoc_state_chain_forward.argtypes = ([_P] * 3 + [_I] * 6
                                                     + [_P] * 3)
             lib.qoc_state_chain_backward.argtypes = ([_P] * 4 + [_I] * 6
-                                                     + [_P] * 4)
+                                                     + [_P] * 3)
             batch = ([_P] + [_I] * 9 + [_P] * 15
                      + [ctypes.POINTER(BatchAdam)])
             lib.qoc_mega_batch_segment.argtypes = batch + [_P]
@@ -385,19 +391,80 @@ def mega_costs_scratch(K: int, M: int, Tp: int, order: int, scaling: int,
                  for s in shapes)
 
 
-def chain_fits(K: int, M: int) -> bool:
+def team_lanes(M: int) -> int:
+    """Lanes of a column's team in kernels 5 and 6 (``team_lanes`` in
+    state_chain.cuh): the least power of two >= M."""
+    return 2 if M <= 2 else 4 if M <= 4 else 8 if M <= 8 else 16
+
+
+def team_slots(K: int) -> int:
+    """Generator slots of kernels 5 and 6 (``team_slots`` in
+    state_chain.cuh): the least of 4, 8, 16 that holds K."""
+    return 4 if K <= 4 else 8 if K <= 8 else 16
+
+
+class BatchGeometry(NamedTuple):
+    """Kernel 6's launch (``batch_geometry`` in mega_batch.cuh)."""
+
+    lanes: int      # per column (team_lanes(M))
+    groups: int     # seed groups (V teams each) per block
+    threads: int    # per block, whole warps
+    blocks: int
+
+
+def batch_geometry(M: int, V: int, C: int) -> BatchGeometry:
+    """A seed group of V * L lanes never straddles a block: where it fits a
+    warp, a block is one warp of 32 // (V * L) groups, else one group;
+    blocks are whole warps (the lanes past the groups idle)."""
+    L = team_lanes(M)
+    G = V * L
+    groups = 32 // G if G <= 32 else 1
+    return BatchGeometry(L, groups, -(-groups * G // 32) * 32,
+                         -(-(C // V) // groups))
+
+
+def _smem_floats(K: int, M: int, order: int, scaling: int, threads: int,
+                 group_sums: bool) -> int:
+    return (team_slots(K) * M * (M + 1) + order
+            + (threads // team_lanes(M) if group_sums else 0)
+            + (order << scaling) * threads)
+
+
+def state_chain_backward_smem(K: int, M: int, order: int,
+                              scaling: int) -> int:
+    """Bytes of kernel 5's shared memory (``chain_backward_smem_floats``):
+    the generators [team_slots(K)][M][M+1], the Taylor coefficients and a
+    step's replayed powers [2^s * order][TEAM_THREADS]."""
+    return 4 * _smem_floats(K, M, order, scaling, TEAM_THREADS, False)
+
+
+def mega_batch_smem(K: int, M: int, V: int, order: int, scaling: int) -> int:
+    """Bytes of kernel 6's shared memory (``batch_smem_floats``): as kernel
+    5's for its block, plus a float per column for the group sums."""
+    threads = batch_geometry(M, V, V).threads
+    return 4 * _smem_floats(K, M, order, scaling, threads, True)
+
+
+def chain_fits(K: int, M: int, order: int = 1, scaling: int = 0,
+               V: int = 1) -> bool:
     """The bounds of the chain kernels (state chain and batched optimizer):
-    M compiled, at most ``MAX_K`` generators per step, and the generators
-    within the kernels' shared-memory copy."""
-    return M in SUPPORTED_M and K <= MAX_K and K * M * M * 4 <= SMEM_LIMIT
+    M compiled, at most ``MAX_K`` generators per step, and the shared
+    memory of kernels 5 and 6 (generators and a step's replayed powers, at
+    V concerned vectors) within ``CHAIN_SMEM_MAX``."""
+    if M not in SUPPORTED_M or K > MAX_K or not 1 <= V <= MAX_V_BATCH:
+        return False
+    return (max(state_chain_backward_smem(K, M, order, scaling),
+                mega_batch_smem(K, M, V, order, scaling)) <= CHAIN_SMEM_MAX)
 
 
-def _check_chain(K: int, M: int) -> None:
-    if not chain_fits(K, M):
+def _check_chain(K: int, M: int, order: int = 1, scaling: int = 0,
+                 V: int = 1) -> None:
+    if not chain_fits(K, M, order, scaling, V):
         raise ValueError(
-            f"{K} generators of {M}x{M} are outside the chain kernels' bounds"
-            f" (M in {SUPPORTED_M}, at most {MAX_K} generators within "
-            f"{SMEM_LIMIT} bytes of shared memory)")
+            f"{K} generators of {M}x{M} at order {order}, scaling {scaling} "
+            f"are outside the chain kernels' bounds (M in {SUPPORTED_M}, at "
+            f"most {MAX_K} generators, within {CHAIN_SMEM_MAX} bytes of "
+            "shared memory)")
 
 
 def state_chain_forward(mats, w, psi0, order: int, scaling: int):
@@ -427,43 +494,53 @@ def state_chain_backward(mats, w, traj, gbar, order: int, scaling: int):
     dev = _check(mats, w, traj, gbar)
     K, M, _ = mats.shape
     T, Kw, C = w.shape
-    _check_chain(K, M)
+    _check_chain(K, M, order, scaling)
     if (Kw != K or tuple(traj.shape) != (T + 1, M, C)
             or tuple(gbar.shape) != (M, C) or order < 1):
         raise ValueError("state chain operands do not match the forward's")
-    ps = torch.empty(((1 << scaling) * order, M, C), dtype=torch.float32,
-                     device=dev)
     wbar = torch.empty((T, K, C), dtype=torch.float32, device=dev)
     psibar = torch.empty((M, C), dtype=torch.float32, device=dev)
     code = _library().qoc_state_chain_backward(
         mats.data_ptr(), w.data_ptr(), traj.data_ptr(), gbar.data_ptr(), K, M,
-        T, C, order, scaling, ps.data_ptr(), wbar.data_ptr(),
+        T, C, order, scaling, wbar.data_ptr(),
         psibar.data_ptr(), _stream(dev))
     _raise_on(code, "state_chain_backward")
     LAUNCHES["state_chain_backward"] += 1
     return wbar, psibar
 
 
-def mega_batch_scratch(M: int, T: int, Kc: int, C: int, order: int,
-                       scaling: int, dev: torch.device):
-    """(traj, sn, wbar, gs, ps) scratch of kernel 6 for C columns."""
-    shapes = ((T + 1, M, C), (T, Kc, C), (T, Kc, C), (T, Kc, C),
-              ((1 << scaling) * order, M, C))
+def mega_batch_scratch(M: int, T: int, Kc: int, C: int, V: int,
+                       dev: torch.device):
+    """(traj [T+1, C, M], sn [S, T, Kc], wbar [C, T, Kc], gs [S, T, Kc])
+    scratch of kernel 6 for C columns of V vectors (S = C / V seeds)."""
+    S = C // V
+    shapes = ((T + 1, C, M), (S, T, Kc), (C, T, Kc), (S, T, Kc))
     return tuple(torch.empty(s, dtype=torch.float32, device=dev)
                  for s in shapes)
 
 
-def mega_batch_costs_scratch(T: int, Kc: int, C: int, F: int,
+def mega_batch_costs_scratch(T: int, Kc: int, C: int, V: int, F: int,
                              dev: torch.device):
-    """(spec, ov) scratch of kernel 6's costs instance."""
-    return (torch.empty((max(Kc * F, 1), 2, C), dtype=torch.float32,
+    """(spec [S, Kc * F, 2], ov [T+1, 2, C]) scratch of kernel 6's costs
+    instance."""
+    return (torch.empty((C // V, max(Kc * F, 1), 2), dtype=torch.float32,
                         device=dev),
             torch.empty((T + 1, 2, C), dtype=torch.float32, device=dev))
 
 
+def clock_split(clocks: torch.Tensor) -> dict:
+    """Each phase's share of the cycles in kernel 6's clock buffer
+    ([blocks, len(CLOCK_PHASES)] int64), summed over blocks; all zero when
+    the buffer is."""
+    tot = clocks.to(torch.float64).sum(dim=0).tolist()
+    whole = sum(tot)
+    return {name: (x / whole if whole else 0.0)
+            for name, x in zip(CLOCK_PHASES, tot)}
+
+
 def mega_batch_segment(mats, maxamp, psi0, tgt, ew, u, m, v, itc, done, *,
                        order: int, scaling: int, n_iters: int, adam: dict,
-                       scratch, costs=None, cost_scratch=None):
+                       scratch, costs=None, cost_scratch=None, clocks=None):
     """Kernel 6: ``n_iters`` Adam iterations for every seed in one launch.
 
     mats [K, M, M] (drift, Kc controls, E extra channels), maxamp [Kc],
@@ -471,8 +548,11 @@ def mega_batch_segment(mats, maxamp, psi0, tgt, ew, u, m, v, itc, done, *,
     [T, Kc, C] and itc, done [1, C] are updated IN PLACE.  ``adam`` holds
     the ``BatchAdam`` fields, ``scratch`` comes from ``mega_batch_scratch``.
     With ``costs`` (``parallel.mega_batch.BatchCosts``) the costs instance
-    runs, with ``cost_scratch`` from ``mega_batch_costs_scratch``.  Returns
-    stats [3, C] = (loss, grad^2, reg_loss) per column."""
+    runs, with ``cost_scratch`` from ``mega_batch_costs_scratch``.
+    ``clocks`` (int64 [rows >= batch_geometry(M, V, C).blocks,
+    len(CLOCK_PHASES)], zeroed by the caller) receives each block's clock64
+    cycles per phase, summed over the iterations; ``clock_split`` reads it.
+    Returns stats [3, C] = (loss, grad^2, reg_loss) per column."""
     tensors = [mats, maxamp, psi0, tgt, ew, u, m, v, itc, done, *scratch]
     if costs is not None:
         tensors += [costs.env2, costs.forb, costs.dftc, costs.dfts,
@@ -481,25 +561,37 @@ def mega_batch_segment(mats, maxamp, psi0, tgt, ew, u, m, v, itc, done, *,
     K, M, _ = mats.shape
     T, Kc, C = u.shape
     V = psi0.shape[1]
-    _check_chain(K, M)
     if V > MAX_V_BATCH or C % V:
         raise ValueError(f"V={V} concerned vectors (at most {MAX_V_BATCH}, "
                          f"dividing the {C} columns)")
-    traj, sn, wbar, gs, ps = scratch
+    _check_chain(K, M, order, scaling, V)
+    traj, sn, wbar, gs = scratch
     E = K - 1 - Kc
+    S = C // V
     if (E < 0 or (E and ew.shape[0] != E) or ew.shape[1] != C
             or tuple(psi0.shape) != (M, V) or tuple(tgt.shape) != (M, V)
-            or tuple(traj.shape) != (T + 1, M, C)
-            or ps.shape[0] < (1 << scaling) * order
+            or tuple(traj.shape) != (T + 1, C, M)
+            or tuple(sn.shape) != (S, T, Kc) or tuple(gs.shape) != (S, T, Kc)
+            or tuple(wbar.shape) != (C, T, Kc)
             or tuple(maxamp.shape) != (Kc,) or n_iters < 1 or order < 1):
         raise ValueError("batched segment operands do not match the problem")
+    blocks = batch_geometry(M, V, C).blocks
+    if clocks is not None and (
+            clocks.device != dev or clocks.dtype != torch.int64
+            or not clocks.is_contiguous() or clocks.dim() != 2
+            or clocks.shape[0] < blocks
+            or clocks.shape[1] != len(CLOCK_PHASES)):
+        raise ValueError("clocks must be a contiguous int64 tensor of "
+                         f"[>= {blocks}, {len(CLOCK_PHASES)}] on the "
+                         "kernel's device")
     stats = torch.empty((3, C), dtype=torch.float32, device=dev)
     args = [mats.data_ptr(), K, M, Kc, V, T, C, order, scaling, int(n_iters),
             maxamp.data_ptr(), psi0.data_ptr(), tgt.data_ptr(),
             ew.data_ptr(), u.data_ptr(), m.data_ptr(), v.data_ptr(),
             itc.data_ptr(), done.data_ptr(), stats.data_ptr(),
             traj.data_ptr(), sn.data_ptr(), wbar.data_ptr(), gs.data_ptr(),
-            ps.data_ptr(), ctypes.byref(BatchAdam(**adam))]
+            None if clocks is None else clocks.data_ptr(),
+            ctypes.byref(BatchAdam(**adam))]
     lib = _library()
     if costs is None:
         code = lib.qoc_mega_batch_segment(*args, _stream(dev))
@@ -508,7 +600,8 @@ def mega_batch_segment(mats, maxamp, psi0, tgt, ew, u, m, v, itc, done, *,
         c = costs
         spec, ov = cost_scratch
         F = c.dftc.shape[1]
-        if (spec.shape[0] < Kc * F or tuple(ov.shape) != (T + 1, 2, C)
+        if (tuple(spec.shape) != (S, max(Kc * F, 1), 2)
+                or tuple(ov.shape) != (T + 1, 2, C)
                 or c.forb.shape[-1] != 1 + 2 * M
                 or tuple(c.env2.shape) != (T, Kc)):
             raise ValueError("batched segment cost operands do not match "

@@ -25,7 +25,7 @@ from ..models.costs import CostContext, total_reg_cost
 from ..models.forward import INTER_VEC_COSTS
 from ..ops import _cuda
 from ..ops.state_chain import fused_state_chain
-from .cols_batch import chain_inputs, column_weights
+from .cols_batch import chain_inputs, chain_order, column_weights
 
 
 def pallas_batch_supported(problem, reg_coeffs: Optional[dict]) -> bool:
@@ -34,7 +34,8 @@ def pallas_batch_supported(problem, reg_coeffs: Optional[dict]) -> bool:
     bounds (``_cuda.chain_fits``) in place of the TPU VMEM budget."""
     if any(k in (reg_coeffs or {}) for k in INTER_VEC_COSTS):
         return False
-    return _cuda.chain_fits(problem.ops_len + 1, 2 * problem.state_num)
+    return _cuda.chain_fits(problem.ops_len + 1, 2 * problem.state_num,
+                            *chain_order(problem))
 
 
 def make_pallas_batched_loss(problem, reg_coeffs: Optional[dict] = None,

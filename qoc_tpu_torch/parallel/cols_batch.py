@@ -39,6 +39,16 @@ def xla_cols_supported(problem, reg_coeffs: Optional[dict]) -> bool:
     return True
 
 
+def chain_order(problem):
+    """(order, scaling) of the column chain: powers 0..taylor_terms-1
+    without squaring in state transfer; powers 0..taylor_terms and
+    taylor_scaling pre-scaled applications in unitary mode."""
+    p = problem
+    if p.state_transfer:
+        return p.taylor_terms, 0
+    return p.taylor_terms + 1, p.taylor_scaling
+
+
 def chain_inputs(problem, extra_channel_mats=None, device="cpu",
                  dtype=torch.float32):
     """(mats [K', M, M], psi0 [M, V], order, scaling) of the column chain:
@@ -53,8 +63,7 @@ def chain_inputs(problem, extra_channel_mats=None, device="cpu",
     psi0 = np.asarray(p.initial_vectors, dtype=np.float32)
     if not p.state_transfer:
         psi0 = np.asarray(p.U0_iso, dtype=np.float32) @ psi0
-    order = p.taylor_terms if p.state_transfer else p.taylor_terms + 1
-    scaling = 0 if p.state_transfer else p.taylor_scaling
+    order, scaling = chain_order(p)
 
     def dev(x):
         return torch.as_tensor(np.ascontiguousarray(x), device=device).to(

@@ -2,12 +2,13 @@
 seed of a population per launch (port of
 ``qoc_tpu.parallel.pallas_mega_batch``, the ``"mega"`` backend).
 
-On the card, ``run_n`` launches kernel 6 (``csrc/mega_batch.cuh``): one
-thread per column (c = seed * V + v), the column chain storing the
-trajectory, the coherent per-seed fidelity, all seven penalties, the
-exact reverse sweep, and Adam with a per-seed freeze, count and learning
-rate.  The fidelity objective runs the kernel's plain instance
-(``_cuda`` name ``mega_batch_segment``); any penalty its costs instance
+On the card, ``run_n`` launches kernel 6 (``csrc/mega_batch.cuh``): a
+team of lanes per column (c = seed * V + v), the V teams of a seed in
+one block, the column chain storing the trajectory, the coherent
+per-seed fidelity, all seven penalties, the exact reverse sweep, and
+Adam with a per-seed freeze, count and learning rate.  The fidelity
+objective runs the kernel's plain instance (``_cuda`` name
+``mega_batch_segment``); any penalty its costs instance
 (``mega_batch_segment_costs``).  Hamiltonian sweeps ride constant-weight
 extra operator channels.
 
@@ -36,12 +37,12 @@ from ..ops import _cuda
 from ..ops.mega import (_MEGA_FORB_KEYS, bandpass_angles,
                         forbidden_static, speed_up_c0)
 from ..optim.adam import B1, B2, EPS
-from .cols_batch import chain_inputs, make_xla_batched_loss
+from .cols_batch import chain_inputs, chain_order, make_xla_batched_loss
 
 _BATCH_PULSE_KEYS = ("amplitude", "envelope", "dwdt", "d2wdt2", "bandpass",
                      "band")
 _MESH = ("mesh= (a seed axis sharded over devices) is not ported to "
-         "qoc_tpu_torch yet (ROADMAP.md, Queue 1 item 7: distribution)")
+         "qoc_tpu_torch yet (ROADMAP.md, Queue 1: distribution)")
 
 
 def batched_mega_supported(problem, reg_coeffs: Optional[dict] = None
@@ -50,7 +51,9 @@ def batched_mega_supported(problem, reg_coeffs: Optional[dict] = None
     fidelity plus any of the seven penalties, ``bandpass`` only with
     ``band``, trajectory penalties only with use_inter_vecs, the
     difference penalties only from 4 steps, V <= 8; and the CUDA kernel's
-    own bounds (``_cuda.chain_fits``) in place of the TPU VMEM budget."""
+    own bounds (``_cuda.chain_fits``: M, K, and the shared memory of a
+    step's replayed powers at this order, scaling and V) in place of the
+    TPU VMEM budget."""
     rc = reg_coeffs or {}
     if rc:
         if set(rc) - set(_MEGA_FORB_KEYS) - set(_BATCH_PULSE_KEYS) - {
@@ -63,9 +66,11 @@ def batched_mega_supported(problem, reg_coeffs: Optional[dict] = None
             return False
         if (rc.get("dwdt") or rc.get("d2wdt2")) and problem.steps < 4:
             return False
-    if problem.initial_vectors.shape[1] > _cuda.MAX_V_BATCH:
+    V = problem.initial_vectors.shape[1]
+    if V > _cuda.MAX_V_BATCH:
         return False
-    return _cuda.chain_fits(problem.ops_len + 1, 2 * problem.state_num)
+    return _cuda.chain_fits(problem.ops_len + 1, 2 * problem.state_num,
+                            *chain_order(problem), V)
 
 
 class BatchCosts(NamedTuple):
@@ -213,7 +218,9 @@ def make_mega_batched_runner(problem, conv, extra_channel_mats=None,
     ``device`` (the plain version on the CPU).
 
     ``init_state(u_bases [S, Kc, T])``; ``run_n(state, n, extra_weights
-    [S, E])`` drives n iterations (frozen seeds stay frozen);
+    [S, E], clocks)`` drives n iterations (frozen seeds stay frozen;
+    ``clocks``, on the card only, is ``_cuda.mega_batch_segment``'s
+    counter buffer);
     ``read_u(state) -> numpy [S, Kc, T]``.  ``throughput=True`` turns the
     convergence predicates off (fixed-count timing)."""
     if mesh is not None:
@@ -261,8 +268,8 @@ def make_mega_batched_runner(problem, conv, extra_channel_mats=None,
                              device=device)
         return torch.repeat_interleave(ew.T, V, dim=1).contiguous()
 
-    def run_n(state: MegaBatchState, n: int,
-              extra_weights=None) -> MegaBatchState:
+    def run_n(state: MegaBatchState, n: int, extra_weights=None,
+              clocks=None) -> MegaBatchState:
         if int(n) <= 0:
             return state
         if device.type == "cpu":
@@ -274,9 +281,9 @@ def make_mega_batched_runner(problem, conv, extra_channel_mats=None,
         C = state.u_cols.shape[2]
         if C not in scratch:
             scratch[C] = (
-                _cuda.mega_batch_scratch(M, T, Kc, C, order, scaling, device),
+                _cuda.mega_batch_scratch(M, T, Kc, C, V, device),
                 None if costs is None else _cuda.mega_batch_costs_scratch(
-                    T, Kc, C, costs.dftc.shape[1], device))
+                    T, Kc, C, V, costs.dftc.shape[1], device))
         u, m, v = (x.clone() for x in (state.u_cols, state.m_cols,
                                        state.v_cols))
         itc, done = state.it_cols.clone(), state.done_cols.clone()
@@ -284,7 +291,7 @@ def make_mega_batched_runner(problem, conv, extra_channel_mats=None,
             mats, maxamp, psi0, tgt, column_extra_weights(extra_weights, C),
             u, m, v, itc, done, order=order, scaling=scaling,
             n_iters=int(n), adam=adam, scratch=scratch[C][0], costs=costs,
-            cost_scratch=scratch[C][1])
+            cost_scratch=scratch[C][1], clocks=clocks)
         return MegaBatchState(
             u_cols=u, m_cols=m, v_cols=v, it_cols=itc, done_cols=done,
             iteration=state.iteration + int(n), losses=stats[0, ::V],

@@ -392,5 +392,6 @@ def test_routing_lines(capsys):
 
 def test_mesh_is_not_ported():
     _, tp = _problems(_pi_args)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError,
+                       match="Queue 1: distribution"):
         batched_grape_adam(tp, 2, mesh=object(), device="cpu")

@@ -371,5 +371,6 @@ def test_off_the_cpu_never_falls_back(rc):
     u0 = np.zeros((2, 2, 16), np.float32)
     with pytest.raises(ValueError, match="CUDA"):
         run(init(u0), 3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError,
+                       match="Queue 1: distribution"):
         make_mega_batched_runner(tp, TConv.from_dict(_conv()), mesh=object())
