@@ -11,12 +11,16 @@ Phases (each prints one line with its numbers; any failed check raises):
   2. the tree chain kernels (forward and backward) against
      ``tree_chain_reference`` at four shapes, Tp up to 8192;
   3. the fused Adam segment kernel against ``mega_segment_reference``,
-     100 iterations on the full-size pi pulse and CNOT problems;
+     100 iterations on the full-size pi pulse and CNOT problems, launched
+     twice (the same bits both times), with its launch geometry (a cluster
+     of G blocks) and its clock64 split (each phase's share of the blocks'
+     cycles, ``_cuda.MEGA_CLOCK_PHASES``);
   3b. the segment kernel's costs instance against ``mega_segment_reference``
      with the same penalties, 100 iterations on the transmon-leakage job
      (examples/jobs/transmon_leakage.json, BASELINE config 3), all seven
      penalties on a 3-level ladder (unitary, T=1000) and a state transfer
-     with speed_up, bandpass and forbidden (T=1000);
+     with speed_up, bandpass and forbidden (T=1000); geometry and clock
+     split as in phase 3;
   4. the main path: ``Grape`` on the pi pulse (examples/01_qubit_pi_pulse.py
      settings) and the CNOT (examples/jobs/cnot.json), ``engine="auto"``,
      which must route to the segment kernel and converge; the pi pulse
@@ -25,8 +29,8 @@ Phases (each prints one line with its numbers; any failed check raises):
      Launch counts are reset just before each run and read just after;
   5. the state chain kernels (forward and backward) against
      ``state_chain_reference`` at the pi pulse's, the CNOT's and config 3's
-     shapes, and at 130 columns (a partial block), with the backward's
-     launch (a team of lanes per column);
+     shapes, and at 130 columns (a partial block), with their launch (a
+     team of lanes per column);
   6. the fused batched-optimizer kernel (both instances) against
      ``mega_batch_segment_reference``, 20 iterations: the pi pulse at 512
      seeds with a detuning channel, the CNOT at 64 seeds, config 3 at 64
@@ -305,6 +309,42 @@ def _segment_bound(n: int, p, mats, psi0p, order: int, s: int, k) -> dict:
     return dict(bound_ms=ms, bound_by=by)
 
 
+def _segment_trace(run, init, u0, n: int, mats, psi0p, Tp: int, order: int,
+                   s: int, costs, dev) -> dict:
+    """One more launch of kernel 3 with its clock64 counters: each phase's
+    share of the blocks' cycles (``_cuda.MEGA_CLOCK_PHASES``), the slowest
+    block's cycles per iteration, and the launch geometry (G blocks of a
+    cluster, teams of lanes, each team's segment of lanes)."""
+    import torch
+
+    from qoc_tpu_torch.ops import _cuda
+
+    geo = _cuda.mega_geometry(mats.shape[1], Tp, mats.shape[0],
+                              psi0p.shape[1], order, s,
+                              costs=costs is not None,
+                              traj=costs is not None and costs.traj)
+    clocks = torch.zeros((geo.blocks, len(_cuda.MEGA_CLOCK_PHASES)),
+                         dtype=torch.int64, device=dev)
+    run(init(u0), n, clocks=clocks)
+    return dict(geometry=geo._asdict(),
+                clock_split=_cuda.clock_split(clocks,
+                                              _cuda.MEGA_CLOCK_PHASES),
+                clock_cycles_per_iter_slowest_block=int(
+                    clocks.sum(dim=1).max()) / n)
+
+
+def _same_twice(run, init, u0, n: int, k, name: str) -> None:
+    """The kernel is deterministic: a second launch on the same inputs
+    gives the same bits."""
+    import torch
+
+    k2 = run(init(u0), n)
+    if not (torch.equal(k.u_base, k2.u_base) and k.loss == k2.loss
+            and k.reg_loss == k2.reg_loss):
+        raise AssertionError(f"segment kernel on {name}: a second launch "
+                             "on the same inputs gave other bits")
+
+
 def phase_mega(dev, problems) -> dict:
     """Kernel 3 against the plain segment, 100 iterations, full size."""
     import torch
@@ -325,6 +365,7 @@ def phase_mega(dev, problems) -> dict:
         statics = dict(segment_statics(p, conv, throughput=True),
                        order=order, scaling=s)
         k = run(init(p.u0_base), n)
+        _same_twice(run, init, p.u0_base, n, k, name)
         r = mega_segment_reference(mats, psi0p, target, maxamp, u0rows,
                                    init(p.u0_base), n, **statics)
         # The f32 floor of this trajectory: the plain version in float64.
@@ -352,6 +393,8 @@ def phase_mega(dev, problems) -> dict:
                 f"unitary_scale {us_err:.3e} (<= 1e-4), iterations "
                 f"{k.iteration} vs {r.iteration}")
         seg_ms = _timed_ms(lambda: run(init(p.u0_base), n), 5)
+        trace = _segment_trace(run, init, p.u0_base, n, mats, psi0p,
+                               k.u_base.shape[1], order, s, None, dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         mega_segment_reference(mats, psi0p, target, maxamp, u0rows,
@@ -361,11 +404,12 @@ def phase_mega(dev, problems) -> dict:
         out[name] = dict(u_err=u_err, seg_ms=seg_ms, plain_ms=plain_ms,
                          **_segment_bound(n, p, mats, psi0p, order, s, k))
         _line("phase3", problem=name, iterations=n, u_max_abs_err=u_err,
-              u_tol=u_tol, u_plain_f32_vs_f64=floor, loss_abs_err=loss_err, unitary_scale_abs_err=us_err,
-              loss_kernel=k.loss, loss_plain=r.loss,
+              u_tol=u_tol, u_plain_f32_vs_f64=floor, loss_abs_err=loss_err,
+              unitary_scale_abs_err=us_err, loss_kernel=k.loss,
+              loss_plain=r.loss, repeat_bit_identical=True,
               kernel_ms_per_iter=seg_ms / n, plain_ms_per_iter=plain_ms / n,
               bound_ms_per_iter=out[name]["bound_ms"] / n,
-              bound_by=out[name]["bound_by"])
+              bound_by=out[name]["bound_by"], **trace)
     return out
 
 
@@ -406,6 +450,7 @@ def phase_mega_costs(dev, problems) -> dict:
         statics = dict(segment_statics(p, conv, throughput=True),
                        order=order, scaling=s, costs=costs)
         k = run(init(p.u0_base), n)
+        _same_twice(run, init, p.u0_base, n, k, name)
         r = mega_segment_reference(mats, psi0p, target, maxamp, u0rows,
                                    init(p.u0_base), n, **statics)
         # the f32 floor, as in phase 3: the plain version in float64
@@ -437,6 +482,8 @@ def phase_mega_costs(dev, problems) -> dict:
                 f"unitary_scale {us_err:.3e} (<= 1e-4), iterations "
                 f"{k.iteration} vs {r.iteration}")
         seg_ms = _timed_ms(lambda: run(init(p.u0_base), n), 3)
+        trace = _segment_trace(run, init, p.u0_base, n, mats, psi0p,
+                               k.u_base.shape[1], order, s, costs, dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         mega_segment_reference(mats, psi0p, target, maxamp, u0rows,
@@ -453,10 +500,11 @@ def phase_mega_costs(dev, problems) -> dict:
               reg_loss_abs_err=reg_err, reg_loss_tol=reg_tol,
               reg_loss_plain_f32_vs_f64=reg_floor,
               unitary_scale_abs_err=us_err, reg_loss_kernel=k.reg_loss,
-              reg_loss_plain=r.reg_loss, kernel_ms_per_iter=seg_ms / n,
+              reg_loss_plain=r.reg_loss, repeat_bit_identical=True,
+              kernel_ms_per_iter=seg_ms / n,
               plain_ms_per_iter=plain_ms / n,
               bound_ms_per_iter=out[name]["bound_ms"] / n,
-              bound_by=out[name]["bound_by"])
+              bound_by=out[name]["bound_by"], **trace)
     return out
 
 
@@ -645,13 +693,11 @@ def phase_state_chain(dev, problems) -> dict:
                 out_r, (w, p0), R, retain_graph=True), 2),
         )
         out[name] = t
-        # kernel 5's launch: a team of lanes per column, one warp a block
-        L = _cuda.team_lanes(M)
-        geometry = dict(lanes_per_column=L, threads=_cuda.TEAM_THREADS,
-                        blocks=-(-C * L // _cuda.TEAM_THREADS))
+        # kernels 4 and 5's launch: a team of lanes per column, one warp a
+        # block
         _line("phase5", problem=name, K=K, M=M, T=T, columns=C, order=order,
               scaling=s, fwd_max_rel_err=fwd_rel, grad_max_rel_err=bwd_rel,
-              bwd_geometry=geometry, **t)
+              geometry=_cuda.chain_geometry(M, C)._asdict(), **t)
     return {"worst": worst, "times": out}
 
 

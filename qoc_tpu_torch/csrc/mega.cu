@@ -1,5 +1,5 @@
 // Fused Adam segment kernel, fidelity-only instance: n complete GRAPE
-// iterations on the pairwise product tree in ONE launch.
+// iterations in ONE launch of one thread-block cluster.
 //
 // Replaces qoc_tpu/ops/pallas_mega.py::_mega_kernel / _build_mega_call
 // (kernel 3) for the objective without penalties.  The kernel body, its

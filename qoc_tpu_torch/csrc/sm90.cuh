@@ -1,6 +1,7 @@
 // Hopper (sm_90) device helpers: asynchronous global -> shared copies
 // (cp.async, with zero fill: a copy whose source is out of range reads
-// nothing and writes zeros) and thread block clusters.
+// nothing and writes zeros) and thread block clusters (rank, size, the
+// cluster barrier and reads of another block's shared memory).
 
 #pragma once
 
@@ -50,6 +51,18 @@ __device__ __forceinline__ unsigned cluster_blocks() {
   unsigned n;
   asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
   return n;
+}
+
+// The address of `p` (this block's shared memory) in the shared memory of
+// the cluster's block `rank` (distributed shared memory): a generic
+// pointer that plain loads read through the cluster's network.
+template <class T>
+__device__ __forceinline__ T* cluster_peer(T* p, unsigned rank) {
+  unsigned long long out;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(out)
+               : "l"(reinterpret_cast<unsigned long long>(p)), "r"(rank));
+  return reinterpret_cast<T*>(out);
 }
 
 // Every thread of the cluster's blocks: what each wrote before (global and

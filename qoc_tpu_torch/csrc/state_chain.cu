@@ -7,24 +7,25 @@
 // state_chain.cuh; this file holds the two launches and their C entry
 // points, which qoc_tpu_torch/ops/_cuda.py loads with ctypes.
 //
-// Kernel 4 (forward): one thread per column (the per-thread form),
-// kChainThreads columns per block, a grid over column blocks (the last
-// block's idle threads return after the only barrier).  Where the TPU
-// kernel keeps a 128-column block of the trajectory in VMEM, here the
-// trajectory [T+1][M][C] lives in device memory, written coalesced.  Its
-// bound is the serial chain of each thread.
+// Both kernels give each column a team of team_lanes(M) lanes (the team
+// form of state_chain.cuh), one warp per block holding 32 / L columns, and
+// a grid over column groups; the last block's idle teams read column 0,
+// take part in every shuffle and write nothing.  One warp per block
+// spreads a few hundred columns over as many SMs as there are warps, each
+// alone on its SM: hence no branch and no run-time shuffle mask in the
+// step (state_chain.cuh).  The bound of both is the serial chain over T,
+// which the team shortens M-fold.
 //
-// Kernel 5 (backward): a team of team_lanes(M) lanes per column (the team
-// form), one warp per block holding 32 / L columns, a grid over column
-// groups; the last block's idle teams read column 0, take part in every
-// shuffle and write nothing.  Its bound is the serial chain over T, which
-// the team shortens M-fold; the replayed powers of one step stay in
-// shared memory ([2^s * order][32] floats beside the generators, sized by
-// the launcher), so the sweep reads the trajectory and the weights and
-// writes wbar [T][K][C] and nothing else.  One warp per block spreads a
-// few hundred columns over as many SMs as there are warps, each alone on
-// its SM: hence no branch and no run-time shuffle mask in the step
-// (state_chain.cuh).
+// Kernel 4 (forward): step t+1's weights are loaded during step t; the
+// trajectory [T+1][M][C] goes to device memory (lane i writes row i), where
+// the TPU kernel keeps a 128-column block of it in VMEM.  Its products are
+// those of one thread walking the column, in that order (team_apply), so
+// the trajectory is the one kernel 5's replay starts from.
+//
+// Kernel 5 (backward): the replayed powers of one step stay in shared
+// memory ([2^s * order][32] floats beside the generators, sized by the
+// launcher), so the sweep reads the trajectory and the weights and writes
+// wbar [T][K][C] and nothing else.
 
 #include <cuda_runtime.h>
 
@@ -32,35 +33,65 @@
 
 namespace qoc {
 
-constexpr int kChainThreads = 64;   // kernel 4: columns per block
-constexpr int kTeamThreads = 32;    // kernel 5: one warp of 32 / L teams
+constexpr int kTeamThreads = 32;    // kernels 4-5: one warp of 32 / L teams
 
-// mats [K][MM], w [T][K][C], psi0 [M][C] -> out [M][C], traj [T+1][M][C]
-template <int M>
-__global__ void __launch_bounds__(kChainThreads)
-state_chain_forward_kernel(const float* mats, const float* w,
-                           const float* psi0, int K, int T, int C, int order,
-                           int scaling, float* out, float* traj) {
-  extern __shared__ float smats[];
-  for (int i = threadIdx.x; i < K * M * M; i += blockDim.x) smats[i] = mats[i];
+// Step t's weights of a lane's column into wt; the slots past K read
+// channel K - 1 and keep weight 0.
+template <int KG>
+__device__ __forceinline__ void load_weights(const float* __restrict__ w,
+                                             int t, int K, int C, int cr,
+                                             float (&wt)[KG]) {
+#pragma unroll
+  for (int k = 0; k < KG; ++k) {
+    const float x = w[((long)t * K + min(k, K - 1)) * C + cr];
+    wt[k] = k < K ? x : 0.0f;
+  }
+}
+
+// Shared memory of kernel 4: the generators (KG slots) and the Taylor
+// coefficients.
+__host__ __device__ constexpr long chain_forward_smem_floats(int KG, int M,
+                                                             int order) {
+  return (long)team_smats_floats(KG, M) + order;
+}
+
+// mats [K][MM], w [T][K][C], psi0 [M][C] -> out [M][C], traj [T+1][M][C].
+// KG = team_slots(K).
+template <int M, int KG>
+__global__ void __launch_bounds__(kTeamThreads)
+state_chain_forward_kernel(const float* __restrict__ mats,
+                           const float* __restrict__ w,
+                           const float* __restrict__ psi0, int K, int T,
+                           int C, int order, int scaling,
+                           float* __restrict__ out,
+                           float* __restrict__ traj) {
+  constexpr int L = team_lanes(M);
+  extern __shared__ float sm[];
+  float* S = sm;
+  float* coef = S + team_smats_floats(KG, M);
+  team_smats<M, KG>(mats, K, S);
+  for (int n = threadIdx.x; n < order; n += blockDim.x)
+    coef[n] = n ? (float)(1.0 / (double)(1 << scaling) / (double)n) : 0.0f;
   __syncthreads();
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  float psi[M], wk[kMaxK];
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    psi[i] = psi0[(long)i * C + c];
-    traj[(long)i * C + c] = psi[i];
-  }
+  const int tid = threadIdx.x;
+  const int lane = tid % L;
+  const int c = (blockIdx.x * blockDim.x + tid) / L;
+  const bool live = c < C && lane < M;
+  const int row = lane < M ? lane : M - 1;
+  const int cr = c < C ? c : 0;   // a column that exists, for idle teams
+  const TeamGen<M, KG> gen(S, row);
+  float wk[KG], wn[KG];
+  if (T > 0) load_weights<KG>(w, 0, K, C, cr, wn);
+  float psi = live ? psi0[(long)row * C + c] : 0.0f;
+  if (live) traj[(long)row * C + c] = psi;
   for (int t = 0; t < T; ++t) {
-    for (int k = 0; k < K; ++k) wk[k] = w[((long)t * K + k) * C + c];
-    chain_step<M>(smats, K, wk, order, scaling, psi);
-    float* tr = traj + (long)(t + 1) * M * C + c;
 #pragma unroll
-    for (int i = 0; i < M; ++i) tr[(long)i * C] = psi[i];
+    for (int k = 0; k < KG; ++k) wk[k] = wn[k];
+    if (t + 1 < T) load_weights<KG>(w, t + 1, K, C, cr, wn);
+    psi = team_step<M, KG>(gen, wk, coef, order, scaling, psi);
+    if (live) traj[((long)(t + 1) * M + row) * C + c] = psi;
   }
-#pragma unroll
-  for (int i = 0; i < M; ++i) out[(long)i * C + c] = psi[i];
+  if (live) out[(long)row * C + c] = psi;
 }
 
 // Shared memory of kernel 5: the generators (KG slots), the Taylor
@@ -101,16 +132,8 @@ state_chain_backward_kernel(const float* __restrict__ mats,
   const int cr = act ? c : 0;   // a column that exists, for idle teams
   const TeamGen<M, KG> gen(S, row);
   float wk[KG], wn[KG], wacc[KG];
-  // step t's weights and state, loaded one step ahead of their use; the
-  // slots past K read channel K - 1 and keep weight 0
-  auto load = [&](int t, float (&wt)[KG]) {
-#pragma unroll
-    for (int k = 0; k < KG; ++k) {
-      const float x = w[((long)t * K + min(k, K - 1)) * C + cr];
-      wt[k] = k < K ? x : 0.0f;
-    }
-  };
-  load(T - 1, wn);
+  // step t's weights and state, loaded one step ahead of their use
+  load_weights<KG>(w, T - 1, K, C, cr, wn);
   float psin = traj[((long)(T - 1) * M + row) * C + cr];
   float pbar = live ? gbar[(long)row * C + c] : 0.0f;
   for (int t = T - 1; t >= 0; --t) {
@@ -121,7 +144,7 @@ state_chain_backward_kernel(const float* __restrict__ mats,
       wacc[k] = 0.0f;
     }
     if (t > 0) {
-      load(t - 1, wn);
+      load_weights<KG>(w, t - 1, K, C, cr, wn);
       psin = traj[((long)(t - 1) * M + row) * C + cr];
     }
     pbar = team_step_backward<M, KG>(gen, wk, coef, order, scaling, psi,
@@ -145,18 +168,30 @@ static cudaError_t chain_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+static inline int team_blocks(int C, int M) {
+  const long lanes = (long)C * qoc::team_lanes(M);
+  return (int)((lanes + qoc::kTeamThreads - 1) / qoc::kTeamThreads);
+}
+
 extern "C" int qoc_state_chain_forward(const float* mats, const float* w,
                                        const float* psi0, int K, int M, int T,
                                        int C, int order, int scaling,
                                        float* out, float* traj,
                                        void* stream) {
-  if (K > qoc::kMaxK || C < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)K * M * M * sizeof(float);
-  const int blocks = (C + qoc::kChainThreads - 1) / qoc::kChainThreads;
+  if (K > qoc::kMaxK || C < 1 || T < 0 || order < 1 || scaling < 0 ||
+      scaling > 20)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = team_blocks(C, M);
   cudaStream_t s = (cudaStream_t)stream;
-  QOC_DISPATCH_M(M, qoc::state_chain_forward_kernel<kM>
-                 <<<blocks, qoc::kChainThreads, smem, s>>>(
-                     mats, w, psi0, K, T, C, order, scaling, out, traj));
+  QOC_DISPATCH_M(M, QOC_DISPATCH_SLOTS(K, {
+    const size_t smem =
+        qoc::chain_forward_smem_floats(kKG, M, order) * sizeof(float);
+    auto kernel = qoc::state_chain_forward_kernel<kM, kKG>;
+    const cudaError_t err = chain_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<blocks, qoc::kTeamThreads, smem, s>>>(
+        mats, w, psi0, K, T, C, order, scaling, out, traj);
+  }));
   return (int)cudaGetLastError();
 }
 
@@ -168,9 +203,7 @@ extern "C" int qoc_state_chain_backward(const float* mats, const float* w,
   if (K > qoc::kMaxK || C < 1 || T < 1 || order < 1 || scaling < 0 ||
       scaling > 20)
     return (int)cudaErrorInvalidValue;
-  const long lanes = (long)C * qoc::team_lanes(M);
-  const int blocks = (int)((lanes + qoc::kTeamThreads - 1) /
-                           qoc::kTeamThreads);
+  const int blocks = team_blocks(C, M);
   cudaStream_t s = (cudaStream_t)stream;
   QOC_DISPATCH_M(M, QOC_DISPATCH_SLOTS(K, {
     const size_t smem =

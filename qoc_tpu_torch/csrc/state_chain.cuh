@@ -1,26 +1,19 @@
 // Device functions of the column-batched state chain: one column's Taylor
-// step and its exact reverse, in two forms.
-//
-//   * Per-thread form (chain_apply, chain_step): one thread owns one
-//     column and keeps its state vector [M] in registers.  Kernel 4
-//     (state_chain.cu, state_chain_forward_kernel) runs it.
-//   * Team form (team_apply, team_step, team_step_backward): a team of L
-//     lanes owns one column, L = team_lanes(M) the least power of two >= M.
-//     Lane i < M owns row i of the state, of its cotangent and of each
-//     Taylor power; the rest of a vector comes from the other lanes by
-//     __shfl_sync of width L.  Lanes >= M compute on row M - 1 and
-//     contribute nothing, but reach every shuffle.  Kernel 5
-//     (state_chain_backward_kernel) and kernel 6 (mega_batch.cuh) run it.
+// step and its exact reverse, in the team form (team_apply, team_step,
+// team_step_backward).  A team of L lanes owns one column, L =
+// team_lanes(M) the least power of two >= M.  Lane i < M owns row i of the
+// state, of its cotangent and of each Taylor power; the rest of a vector
+// comes from the other lanes by __shfl_sync of width L.  Lanes >= M
+// compute on row M - 1 and contribute nothing, but reach every shuffle.
+// Kernels 4 and 5 (state_chain.cu) and kernel 6 (mega_batch.cuh) run it.
 //
 // Replace the per-step bodies of qoc_tpu/ops/pallas_chain.py::_fwd_kernel
 // and ::_bwd_kernel, and the forward and backward chains of
 // qoc_tpu/parallel/pallas_mega_batch.py::_kernel.
 //
 // Layout.  Every per-column array of the public interface is [..][C] with
-// c innermost (trajectory [T+1][M][C], weights [T][K][C]).  The per-thread
-// form reads the generators mats [K][M][M] from shared memory, every
-// thread the same element at the same time (a broadcast).  The team form
-// copies them with a row stride of M + 1 (team_smats), where the lanes of a
+// c innermost (trajectory [T+1][M][C], weights [T][K][C]).  The generators
+// are copied with a row stride of M + 1 (team_smats), where the lanes of a
 // team read distinct banks and the teams of a warp the same addresses, and
 // each lane keeps its row and column of them in registers where they fit
 // (TeamGen).
@@ -37,11 +30,10 @@
 // matsT operand).
 //
 // Bound.  K*M*M FMAs per Taylor power per column, serial over T: a
-// latency-bound chain, far above the operation and byte bounds.  The
-// per-thread form walks it alone (M*M-long FMA chains per power, one warp
-// per SM at a few hundred columns); the team form splits each power over M
-// lanes (M-long chains plus M shuffles) and keeps the replayed powers of a
-// step in shared memory, so the chain is M times shorter and touches no
+// latency-bound chain, far above the operation and byte bounds.  The team
+// splits each power over M lanes (M-long FMA chains plus M shuffles) where
+// one thread per column would walk M*M-long chains, and the reverse keeps
+// the replayed powers of a step in shared memory, so the chain touches no
 // device memory but the trajectory.
 
 #pragma once
@@ -55,55 +47,6 @@
 namespace qoc {
 
 constexpr int kMaxK = 16;   // generators per step (drift + controls + extras)
-
-// y = sum_k wk[k] * (S_k @ x), S = mats [K][M][M]
-template <int M>
-__device__ __forceinline__ void chain_apply(const float* S, int K,
-                                            const float* wk, const float* x,
-                                            float* y) {
-#pragma unroll
-  for (int i = 0; i < M; ++i) y[i] = 0.0f;
-  for (int k = 0; k < K; ++k) {
-    const float* Sk = S + k * M * M;
-    const float a = wk[k];
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      float s = 0.0f;
-#pragma unroll
-      for (int j = 0; j < M; ++j) s += Sk[i * M + j] * x[j];
-      y[i] += a * s;
-    }
-  }
-}
-
-// One timestep, in place on psi: 2^scaling Taylor applications of the
-// 2^-scaling-scaled generator, powers 0..order-1 each.
-template <int M>
-__device__ __forceinline__ void chain_step(const float* S, int K,
-                                           const float* wk, int order,
-                                           int scaling, float* psi) {
-  const int reps = 1 << scaling;
-  const double csc = 1.0 / (double)reps;
-  float pn[M], y[M], tmp[M];
-  for (int r = 0; r < reps; ++r) {
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      pn[i] = psi[i];
-      y[i] = psi[i];
-    }
-    for (int n = 1; n < order; ++n) {
-      chain_apply<M>(S, K, wk, pn, tmp);
-      const float f = (float)(csc / (double)n);
-#pragma unroll
-      for (int i = 0; i < M; ++i) {
-        pn[i] = tmp[i] * f;
-        y[i] += pn[i];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < M; ++i) psi[i] = y[i];
-  }
-}
 
 // ---- team form -------------------------------------------------------------
 //
@@ -198,8 +141,9 @@ __device__ __forceinline__ float team_sum(float x) {
   return x;
 }
 
-// Row `row` of sum_k wk[k] * (S_k @ x), x held one row per lane.  The
-// same products in the same order as chain_apply (j inside, k outside).
+// Row `row` of sum_k wk[k] * (S_k @ x), x held one row per lane: the
+// products of a serial walk over the row, in its order (j inside, k
+// outside).
 template <int M, int KG, class Gen>
 __device__ __forceinline__ float team_apply(const Gen& g,
                                             const float (&wk)[KG], float x) {

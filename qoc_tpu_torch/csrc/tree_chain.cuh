@@ -5,8 +5,9 @@
 // Replaces the value-level functions of qoc_tpu/ops/pallas_tree.py
 // (taylor_step_vals, taylor_step_backward_vals, tree_forward_vals,
 // tree_backward_vals, scan_forward_vals, scan_backward_vals), which the
-// standalone tree kernels (tree_chain.cu) and the fused Adam segment
-// kernel (mega.cuh) run.
+// tree kernels 1-2 (tree_chain.cu) run; the fused Adam segment kernel
+// (mega.cuh) has a body of its own and takes only QOC_DISPATCH_M from
+// here.
 //
 // Layout.  Every per-step matrix array is [levels][M*M][Tp] float32: for
 // element e = i*M + j of the matrix at time lane t the offset is
@@ -29,17 +30,16 @@
 // residuals in shared memory and warp-per-lane-group layouts are later
 // work.
 //
-// Kernels run kThreads threads, a power of two (the segment kernel's
-// grad^2 reduction halves it).  No pointer
-// here is __restrict__: the fused segment kernel rewrites the residuals
-// and the cotangent buffer inside one launch, so no read may take the
-// non-coherent read-only path.
+// Kernels 1-2 run kThreads threads.  No pointer here is __restrict__:
+// the helpers rewrite the tree levels and the cotangent buffer in place
+// between block barriers, so no read may take the non-coherent read-only
+// path.
 
 #pragma once
 
 namespace qoc {
 
-constexpr int kThreads = 256;   // block size of every kernel of the port
+constexpr int kThreads = 256;   // block size of kernels 1-2
 
 __device__ __forceinline__ int tree_levels(int Tp) {   // log2(Tp), Tp = 2^L
   return 31 - __clz(Tp);

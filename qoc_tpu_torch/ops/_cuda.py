@@ -44,9 +44,11 @@ SUPPORTED_M = (2, 4, 6, 8, 10, 12)
 SMEM_LIMIT = 48 * 1024     # the kernels' dynamic shared memory (mats)
 MAX_V = 16                 # kMaxV in mega.cuh
 MAX_V_TRAJ = 8             # kMaxVTraj in mega.cuh (trajectory mode)
+MEGA_THREADS = 512         # kMegaThreads in mega.cuh (kernel 3's block)
+MEGA_SMEM_MAX = 232448     # kMegaSmemMax in mega.cuh
 MAX_K = 16                 # kMaxK in state_chain.cuh (generators per step)
 MAX_V_BATCH = 8            # kMaxVBatch in mega_batch.cuh
-TEAM_THREADS = 32          # kTeamThreads in state_chain.cu (kernel 5)
+TEAM_THREADS = 32          # kTeamThreads in state_chain.cu (kernels 4-5)
 CHAIN_SMEM_MAX = 232448    # dynamic shared memory a block may opt into
 EXPM_SHARED_MAX_M = 120    # kExpmSharedMaxM in expm.cuh
 EXPM_MAX_GRID = 264        # kExpmMaxGrid in expm.cuh (two blocks per SM)
@@ -54,6 +56,11 @@ EXPM_SLOTS = {"forward": 3, "backward": 5}   # kForwardSlots, kBackwardSlots
 # kernel 6's clock64 phases, in the order of its counters (kClockPhases)
 CLOCK_PHASES = ("sin", "forward", "fidelity", "reverse", "penalties",
                 "gradient", "adam")
+# kernel 3's clock64 phases, in the order of its counters
+# (kMegaClockPhases in mega.cuh)
+MEGA_CLOCK_PHASES = ("taylor_forward", "penalties", "chain_forward", "loss",
+                     "trajectory", "chain_reverse", "taylor_reverse",
+                     "grad2_convergence", "adam")
 
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES = {"tree_forward": 0, "tree_backward": 0, "mega_segment": 0,
@@ -73,7 +80,7 @@ class CostArgs(ctypes.Structure):
     """Mirror of ``qoc::CostArgs`` (mega.cuh), field for field."""
 
     _fields_ = ([(n, _P) for n in ("env", "forb", "dftc", "dfts", "dftct",
-                                    "dftst", "sw", "s2", "spec", "bar2")]
+                                    "dftst", "spec")]
                 + [(n, _I) for n in ("nforb", "F", "traj")]
                 + [(n, _F) for n in ("a_amp", "a_env", "a_dwdt", "a_d2",
                                       "inv_dt", "a_bp", "a_spd", "spd_c0",
@@ -167,7 +174,7 @@ def _library():
             lib.qoc_tree_backward.argtypes = [_P, _I, _I, _I, _I, _I, _P, _P,
                                               _P, _P, _P, _P, _P]
             mega = ([_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I]
-                    + [_P] * 14 + [_F] * 11)
+                    + [_P] * 12 + [_F] * 11)
             lib.qoc_mega_segment.argtypes = mega + [_P]
             lib.qoc_mega_segment_costs.argtypes = mega + [
                 ctypes.POINTER(CostArgs), _P]
@@ -279,19 +286,107 @@ def tree_backward(mats, an, sq, tree, gbar, order: int, scaling: int):
     return wbar
 
 
+class MegaGeometry(NamedTuple):
+    """Kernel 3's launch (``mega_geometry`` in mega.cuh)."""
+
+    blocks: int     # the cluster: G blocks on G SMs (0: nothing fits)
+    threads: int    # per block
+    team: int       # lanes per team (team_lanes(M))
+    teams: int      # per block, one segment each
+    lanes_per_block: int   # Tp / G
+    segment: int    # lanes a team walks
+    smem: int       # dynamic shared memory of a block, bytes
+
+
+def _al4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _mega_layout(G: int, M: int, Tp: int, K: int, V: int, order: int,
+                 scaling: int, traj: bool, cap: int) -> MegaGeometry:
+    """``mega_layout`` in mega.cuh: the block's threads and the floats of
+    its shared memory (generators, series coefficients, the segment tree,
+    the states and cotangents at every lane and segment boundary, the
+    cluster's products, each team's walk scratch, reductions; in
+    trajectory mode the costs' overlaps and direct cotangents per lane)."""
+    L = team_lanes(M)
+    TB = Tp // G
+    NT = min(max(TB * L, 32), cap)
+    teams = NT // L
+    S = TB // teams if TB > teams else 1
+    nterms, reps, MP = order + 1, 1 << scaling, (M + 3) & ~3
+    mat, vec = M * MP, V * MP
+    TS = _al4(max(2 * mat, (reps + nterms + 2 + L) * MP) + vec)
+    floats = (_al4(K * M * (M + 1)) + _al4(nterms) + _al4(K)
+              + (2 * teams - 1) * mat + (2 * teams - 1) * vec * traj
+              + (teams * S + 1) * vec + (teams + 1) * vec + G * mat
+              + G * vec * traj + 2 * (V + 1) * MP + 3 * vec + teams * TS
+              + NT + 8 + (2 * teams * S + (teams * S + 1) * vec) * traj)
+    return MegaGeometry(G, NT, L, teams, TB, S, 4 * floats)
+
+
+def mega_geometry(M: int, Tp: int, K: int, V: int, order: int, scaling: int,
+                  *, costs: bool = False, traj: bool = False) -> MegaGeometry:
+    """Kernel 3's rule (``mega_geometry`` in mega.cuh): G = Tp / 32 blocks,
+    between 1 and 8 (a portable cluster), of at most 64 teams and 512
+    threads (256 for the costs instance, ``costs``; ``traj``: its
+    trajectory mode); where that would not fit a block's shared memory, 16
+    blocks, then 16 blocks of half the threads; ``blocks`` is 0 where
+    nothing fits."""
+    G = min(max(Tp // 32, 1), 8)
+    costs = costs or traj
+    cap = min(64 * team_lanes(M),   # mega_max_threads
+              MEGA_THREADS // 2 if costs else MEGA_THREADS)
+    g = _mega_layout(G, M, Tp, K, V, order, scaling, traj, cap)
+    if g.smem > MEGA_SMEM_MAX and Tp >= 32:
+        g = _mega_layout(16, M, Tp, K, V, order, scaling, traj, cap)
+    if g.smem > MEGA_SMEM_MAX and Tp >= 32 and cap > 32:
+        g = _mega_layout(16, M, Tp, K, V, order, scaling, traj, cap // 2)
+    return g if g.smem <= MEGA_SMEM_MAX else g._replace(blocks=0)
+
+
+def _check_clocks(clocks, dev, blocks: int, phases) -> None:
+    if clocks is not None and (
+            clocks.device != dev or clocks.dtype != torch.int64
+            or not clocks.is_contiguous() or clocks.dim() != 2
+            or clocks.shape[0] < blocks or clocks.shape[1] != len(phases)):
+        raise ValueError("clocks must be a contiguous int64 tensor of "
+                         f"[>= {blocks}, {len(phases)}] on the kernel's "
+                         "device")
+
+
 def _mega_args(mats, psi0p, target, maxamp, u0rows, u, m, v, sf, met,
-               scratch, N, T, order, scaling, n_iters, unitary_mode, b1, b2,
-               eps, rate_factor, conv_target, min_grad, max_iterations):
-    """The operands both segment entry points share, in C order."""
+               scratch, clocks, costs, traj, N, T, order, scaling, n_iters,
+               unitary_mode, b1, b2, eps, rate_factor, conv_target, min_grad,
+               max_iterations):
+    """The operands both segment entry points share, in C order; raises
+    where the problem is outside kernel 3's bounds."""
     K, M, _ = mats.shape
-    an, sq, tree, bar, g = scratch[:5]
-    return (mats.data_ptr(), K, M, N, T, u.shape[1], psi0p.shape[1], order,
-            scaling, int(n_iters), int(bool(unitary_mode)),
-            psi0p.data_ptr(), target.data_ptr(), maxamp.data_ptr(),
-            u0rows.data_ptr(), u.data_ptr(), m.data_ptr(), v.data_ptr(),
-            sf.data_ptr(), met.data_ptr(), an.data_ptr(), sq.data_ptr(),
-            tree.data_ptr(), bar.data_ptr(), g.data_ptr(), b1, b2,
-            float(1.0 - b1), float(1.0 - b2), eps, math.log(b1),
+    Kc, Tp = u.shape
+    V = psi0p.shape[1]
+    vmax = MAX_V_TRAJ if traj else MAX_V
+    if V > vmax:
+        raise ValueError(f"V={V} concerned vectors exceed {vmax}")
+    if not 0 <= scaling <= 20 or order < 0:
+        raise ValueError(f"Taylor order {order}, scaling {scaling} outside "
+                         "kernel 3's bounds (order >= 0, scaling <= 20)")
+    geo = mega_geometry(M, Tp, K, V, order, scaling, costs=costs, traj=traj)
+    if geo.blocks == 0:
+        raise ValueError(
+            f"kernel 3 at M={M}, Tp={Tp}, K={K}, V={V}, order {order}, "
+            f"scaling {scaling} needs more than {MEGA_SMEM_MAX} bytes of "
+            "shared memory per block even over 16 blocks")
+    sw, g = scratch[:2]
+    if (tuple(sw.shape) != (Kc, Tp) or tuple(g.shape) != (Kc, Tp)
+            or tuple(m.shape) != (Kc, Tp) or tuple(v.shape) != (Kc, Tp)):
+        raise ValueError("segment scratch does not match the problem")
+    _check_clocks(clocks, mats.device, geo.blocks, MEGA_CLOCK_PHASES)
+    return (mats.data_ptr(), K, M, N, T, Tp, V, order, scaling, int(n_iters),
+            int(bool(unitary_mode)), psi0p.data_ptr(), target.data_ptr(),
+            maxamp.data_ptr(), u0rows.data_ptr(), u.data_ptr(), m.data_ptr(),
+            v.data_ptr(), sf.data_ptr(), met.data_ptr(), sw.data_ptr(),
+            g.data_ptr(), None if clocks is None else clocks.data_ptr(), b1,
+            b2, float(1.0 - b1), float(1.0 - b2), eps, math.log(b1),
             math.log(b2), rate_factor, conv_target, min_grad,
             float(max_iterations))
 
@@ -300,24 +395,25 @@ def mega_segment(mats, psi0p, target, maxamp, u0rows, u, m, v, sf, *,
                  N: int, T: int, order: int, scaling: int, n_iters: int,
                  unitary_mode: bool, b1: float, b2: float, eps: float,
                  rate_factor: float, conv_target: float, min_grad: float,
-                 max_iterations: float, scratch):
+                 max_iterations: float, scratch, clocks=None):
     """Kernel 3, fidelity-only instance: ``n_iters`` Adam iterations in one
     launch.  u, m, v [Kc, Tp] are updated IN PLACE; sf [3] = (lr,
     iteration, done).  Returns met [8] = (loss, grad^2, unitary_scale, lr,
     iteration, done, reg_loss, 0).  ``scratch`` comes from
-    ``mega_scratch`` and may be reused across launches on one stream."""
-    dev = _check(mats, psi0p, target, maxamp, u0rows, u, m, v, sf)
+    ``mega_scratch`` and may be reused across launches on one stream.
+    The launch is one cluster of ``mega_geometry(...).blocks`` blocks.
+    ``clocks`` (int64 [rows >= those blocks, len(MEGA_CLOCK_PHASES)],
+    zeroed by the caller) receives each block's clock64 cycles per phase,
+    summed over the iterations."""
+    dev = _check(mats, psi0p, target, maxamp, u0rows, u, m, v, sf, *scratch)
     K, M, _ = mats.shape
     _check_shape(K, M, u.shape[1])
-    V = psi0p.shape[1]
-    if V > MAX_V:
-        raise ValueError(f"V={V} concerned vectors exceed {MAX_V}")
     met = torch.empty(8, dtype=torch.float32, device=dev)
     code = _library().qoc_mega_segment(
         *_mega_args(mats, psi0p, target, maxamp, u0rows, u, m, v, sf, met,
-                    scratch, N, T, order, scaling, n_iters, unitary_mode, b1,
-                    b2, eps, rate_factor, conv_target, min_grad,
-                    max_iterations), _stream(dev))
+                    scratch, clocks, False, False, N, T, order, scaling,
+                    n_iters, unitary_mode, b1, b2, eps, rate_factor,
+                    conv_target, min_grad, max_iterations), _stream(dev))
     _raise_on(code, "mega_segment")
     LAUNCHES["mega_segment"] += 1
     return met
@@ -328,7 +424,7 @@ def mega_segment_costs(mats, psi0p, target, maxamp, u0rows, u, m, v, sf, *,
                        n_iters: int, unitary_mode: bool, b1: float,
                        b2: float, eps: float, rate_factor: float,
                        conv_target: float, min_grad: float,
-                       max_iterations: float, scratch):
+                       max_iterations: float, scratch, clocks=None):
     """Kernel 3, costs instance: as ``mega_segment`` with the penalties of
     ``costs`` (``ops.mega.SegmentCosts``); ``scratch`` comes from
     ``mega_costs_scratch``.  met[6] is loss + penalties."""
@@ -338,57 +434,49 @@ def mega_segment_costs(mats, psi0p, target, maxamp, u0rows, u, m, v, sf, *,
     K, M, _ = mats.shape
     Tp = u.shape[1]
     _check_shape(K, M, Tp)
-    V = psi0p.shape[1]
-    vmax = MAX_V_TRAJ if c.traj else MAX_V
-    if V > vmax:
-        raise ValueError(f"V={V} concerned vectors exceed {vmax}")
     F = c.dftc.shape[1]
-    L = Tp.bit_length() - 1
-    sw, s2, spec, bar2 = scratch[5:]
+    spec = scratch[2]
+    G = mega_geometry(M, Tp, K, psi0p.shape[1], order, scaling, costs=True,
+                      traj=c.traj).blocks
     if (c.env.shape != (K - 1, Tp) or c.forb.shape[-1] != 1 + 2 * M
-            or c.dftct.shape != (F, Tp) or spec.numel() < 2 * (K - 1) * F
-            or (c.traj and (scratch[2].shape[0] < L + 1
-                            or bar2.shape != (M, M, Tp)))):
+            or c.dftct.shape != (F, Tp)
+            or spec.numel() < 2 * G * (K - 1) * F * 2):
         raise ValueError("segment cost operands do not match the problem")
     met = torch.empty(8, dtype=torch.float32, device=dev)
     args = CostArgs(
         c.env.data_ptr(), c.forb.data_ptr(), c.dftc.data_ptr(),
         c.dfts.data_ptr(), c.dftct.data_ptr(), c.dftst.data_ptr(),
-        sw.data_ptr(), s2.data_ptr(), spec.data_ptr(), bar2.data_ptr(),
-        c.forb.shape[0], F, int(c.traj), c.a_amp, c.a_env, c.a_dwdt,
-        c.a_d2, c.inv_dt, c.a_bp, c.a_spd, c.spd_c0, c.forb_c0)
+        spec.data_ptr(), c.forb.shape[0], F, int(c.traj), c.a_amp, c.a_env,
+        c.a_dwdt, c.a_d2, c.inv_dt, c.a_bp, c.a_spd, c.spd_c0, c.forb_c0)
     code = _library().qoc_mega_segment_costs(
         *_mega_args(mats, psi0p, target, maxamp, u0rows, u, m, v, sf, met,
-                    scratch, N, T, order, scaling, n_iters, unitary_mode, b1,
-                    b2, eps, rate_factor, conv_target, min_grad,
-                    max_iterations), ctypes.byref(args), _stream(dev))
+                    scratch, clocks, True, c.traj, N, T, order, scaling,
+                    n_iters, unitary_mode, b1, b2, eps, rate_factor,
+                    conv_target, min_grad, max_iterations),
+        ctypes.byref(args), _stream(dev))
     _raise_on(code, "mega_segment_costs")
     LAUNCHES["mega_segment_costs"] += 1
     return met
 
 
-def mega_scratch(K: int, M: int, Tp: int, order: int, scaling: int,
-                 dev: torch.device):
-    """(an, sq, tree, bar, g) scratch of the fidelity-only instance."""
-    shapes = residual_shapes(M, Tp, order, scaling) + ((M, M, Tp),
-                                                       (K - 1, Tp))
-    return tuple(torch.empty(s, dtype=torch.float32, device=dev)
-                 for s in shapes)
+def mega_scratch(K: int, Tp: int, dev: torch.device):
+    """(sw, g) scratch of kernel 3's fidelity-only instance: sin(u) and the
+    gradient [K-1, Tp]; nothing of order M^2 Tp (the kernel keeps its
+    chain in shared memory and replays the Taylor powers)."""
+    return tuple(torch.empty((K - 1, Tp), dtype=torch.float32, device=dev)
+                 for _ in range(2))
 
 
-def mega_costs_scratch(K: int, M: int, Tp: int, order: int, scaling: int,
-                       F: int, traj: bool, dev: torch.device):
-    """(an, sq, tree, bar, g, sw, s2, spec, bar2) scratch of the costs
-    instance; trajectory mode keeps L+1 scan levels and a second
-    cotangent buffer."""
-    an, sq, tree = residual_shapes(M, Tp, order, scaling)
-    if traj:
-        tree = (tree[0] + 1,) + tree[1:]
-    shapes = (an, sq, tree, (M, M, Tp), (K - 1, Tp), (K - 1, Tp),
-              (K - 1, Tp), (max(K - 1, 1), max(F, 1), 2),
-              (M, M, Tp) if traj else (1,))
-    return tuple(torch.empty(s, dtype=torch.float32, device=dev)
-                 for s in shapes)
+def mega_costs_scratch(K: int, M: int, Tp: int, V: int, order: int,
+                       scaling: int, F: int, traj: bool, dev: torch.device):
+    """(sw, g, spec) scratch of kernel 3's costs instance: as
+    ``mega_scratch``, plus the bandpass spectra [2, G, K-1, F, 2] (each
+    block's partial sums, then each block's finished spectrum)."""
+    G = mega_geometry(M, Tp, K, V, order, scaling, costs=True,
+                      traj=traj).blocks
+    spec = torch.empty((2, max(G, 1), max(K - 1, 1), max(F, 1), 2),
+                       dtype=torch.float32, device=dev)
+    return mega_scratch(K, Tp, dev) + (spec,)
 
 
 def team_lanes(M: int) -> int:
@@ -430,6 +518,27 @@ def _smem_floats(K: int, M: int, order: int, scaling: int, threads: int,
             + (order << scaling) * threads)
 
 
+class ChainGeometry(NamedTuple):
+    """The launch of kernels 4 and 5 (``team_blocks`` in state_chain.cu)."""
+
+    lanes: int      # per column (team_lanes(M))
+    threads: int    # per block: one warp
+    blocks: int
+
+
+def chain_geometry(M: int, C: int) -> ChainGeometry:
+    """A team of ``team_lanes(M)`` lanes per column, 32 / L columns in a
+    one-warp block, a grid over the column groups."""
+    L = team_lanes(M)
+    return ChainGeometry(L, TEAM_THREADS, -(-C * L // TEAM_THREADS))
+
+
+def state_chain_forward_smem(K: int, M: int, order: int) -> int:
+    """Bytes of kernel 4's shared memory (``chain_forward_smem_floats``):
+    the generators [team_slots(K)][M][M+1] and the Taylor coefficients."""
+    return 4 * (team_slots(K) * M * (M + 1) + order)
+
+
 def state_chain_backward_smem(K: int, M: int, order: int,
                               scaling: int) -> int:
     """Bytes of kernel 5's shared memory (``chain_backward_smem_floats``):
@@ -449,11 +558,13 @@ def chain_fits(K: int, M: int, order: int = 1, scaling: int = 0,
                V: int = 1) -> bool:
     """The bounds of the chain kernels (state chain and batched optimizer):
     M compiled, at most ``MAX_K`` generators per step, and the shared
-    memory of kernels 5 and 6 (generators and a step's replayed powers, at
-    V concerned vectors) within ``CHAIN_SMEM_MAX``."""
+    memory of kernels 4, 5 and 6 (generators, coefficients and, for 5 and
+    6, a step's replayed powers at V concerned vectors) within
+    ``CHAIN_SMEM_MAX``."""
     if M not in SUPPORTED_M or K > MAX_K or not 1 <= V <= MAX_V_BATCH:
         return False
-    return (max(state_chain_backward_smem(K, M, order, scaling),
+    return (max(state_chain_forward_smem(K, M, order),
+                state_chain_backward_smem(K, M, order, scaling),
                 mega_batch_smem(K, M, V, order, scaling)) <= CHAIN_SMEM_MAX)
 
 
@@ -473,7 +584,7 @@ def state_chain_forward(mats, w, psi0, order: int, scaling: int):
     dev = _check(mats, w, psi0)
     K, M, _ = mats.shape
     T, Kw, C = w.shape
-    _check_chain(K, M)
+    _check_chain(K, M, order, scaling)
     if Kw != K or tuple(psi0.shape) != (M, C) or order < 1 or C < 1:
         raise ValueError("state chain operands do not match: mats "
                          f"{tuple(mats.shape)}, w {tuple(w.shape)}, psi0 "
@@ -528,14 +639,15 @@ def mega_batch_costs_scratch(T: int, Kc: int, C: int, V: int, F: int,
             torch.empty((T + 1, 2, C), dtype=torch.float32, device=dev))
 
 
-def clock_split(clocks: torch.Tensor) -> dict:
-    """Each phase's share of the cycles in kernel 6's clock buffer
-    ([blocks, len(CLOCK_PHASES)] int64), summed over blocks; all zero when
-    the buffer is."""
+def clock_split(clocks: torch.Tensor, phases=CLOCK_PHASES) -> dict:
+    """Each phase's share of the cycles in a clock buffer ([blocks,
+    len(phases)] int64; kernel 6's ``CLOCK_PHASES`` by default, kernel 3's
+    ``MEGA_CLOCK_PHASES``), summed over blocks; all zero when the buffer
+    is."""
     tot = clocks.to(torch.float64).sum(dim=0).tolist()
     whole = sum(tot)
     return {name: (x / whole if whole else 0.0)
-            for name, x in zip(CLOCK_PHASES, tot)}
+            for name, x in zip(phases, tot)}
 
 
 def mega_batch_segment(mats, maxamp, psi0, tgt, ew, u, m, v, itc, done, *,
@@ -575,15 +687,7 @@ def mega_batch_segment(mats, maxamp, psi0, tgt, ew, u, m, v, itc, done, *,
             or tuple(wbar.shape) != (C, T, Kc)
             or tuple(maxamp.shape) != (Kc,) or n_iters < 1 or order < 1):
         raise ValueError("batched segment operands do not match the problem")
-    blocks = batch_geometry(M, V, C).blocks
-    if clocks is not None and (
-            clocks.device != dev or clocks.dtype != torch.int64
-            or not clocks.is_contiguous() or clocks.dim() != 2
-            or clocks.shape[0] < blocks
-            or clocks.shape[1] != len(CLOCK_PHASES)):
-        raise ValueError("clocks must be a contiguous int64 tensor of "
-                         f"[>= {blocks}, {len(CLOCK_PHASES)}] on the "
-                         "kernel's device")
+    _check_clocks(clocks, dev, batch_geometry(M, V, C).blocks, CLOCK_PHASES)
     stats = torch.empty((3, C), dtype=torch.float32, device=dev)
     args = [mats.data_ptr(), K, M, Kc, V, T, C, order, scaling, int(n_iters),
             maxamp.data_ptr(), psi0.data_ptr(), tgt.data_ptr(),

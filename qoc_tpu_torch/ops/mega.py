@@ -369,9 +369,10 @@ def make_mega_segment_runner(problem, conv, throughput: bool = False,
                              reg_coeffs=None, device="cpu"):
     """(init_state, run_segment, unpad) for the fused segment.
 
-    ``run_segment(state, n)`` advances up to ``n`` iterations with the
-    convergence semantics of ``optim.adam``; ``throughput=True`` disables
-    the convergence test (fixed-count timing).  ``reg_coeffs`` selects the
+    ``run_segment(state, n, clocks=None)`` advances up to ``n`` iterations
+    with the convergence semantics of ``optim.adam``; ``throughput=True``
+    disables the convergence test (fixed-count timing).  ``clocks`` (CUDA
+    only) is the kernel's clock64 buffer (``_cuda.mega_segment``).  ``reg_coeffs`` selects the
     penalties (any that ``mega_supported`` admits).  On a CUDA ``device``
     each segment is one launch of the CUDA kernel; on the CPU it runs
     ``mega_segment_reference``.
@@ -392,19 +393,22 @@ def make_mega_segment_runner(problem, conv, throughput: bool = False,
         return adam_state_from_numpy(u_base, zeros, zeros, 0, conv.rate, T,
                                      Tp, device)
 
-    def run_segment(state: AdamState, n: int) -> AdamState:
+    def run_segment(state: AdamState, n: int, clocks=None) -> AdamState:
         if device.type == "cpu":
+            if clocks is not None:
+                raise ValueError("clocks count the CUDA kernel's cycles; "
+                                 "the plain version has none")
             return mega_segment_reference(mats, psi0p, target, maxamp,
                                           u0rows, state, int(n),
                                           costs=costs, **statics)
         K, M = mats.shape[0], mats.shape[1]
         if not scratch:
             scratch.extend(
-                _cuda.mega_scratch(K, M, Tp, order, scaling, device)
+                _cuda.mega_scratch(K, Tp, device)
                 if costs is None else
-                _cuda.mega_costs_scratch(K, M, Tp, order, scaling,
-                                         costs.dftc.shape[1], costs.traj,
-                                         device))
+                _cuda.mega_costs_scratch(K, M, Tp, psi0p.shape[1], order,
+                                         scaling, costs.dftc.shape[1],
+                                         costs.traj, device))
         u = state.u_base.clone()
         m = state.m.clone()
         v = state.v.clone()
@@ -413,7 +417,7 @@ def make_mega_segment_runner(problem, conv, throughput: bool = False,
                           device=device)
         args = (mats, psi0p, target, maxamp, u0rows, u, m, v, sf)
         kw = dict(n_iters=int(n), b1=B1, b2=B2, eps=EPS,
-                  scratch=tuple(scratch), **statics)
+                  scratch=tuple(scratch), clocks=clocks, **statics)
         if costs is None:
             met = _cuda.mega_segment(*args, **kw)
         else:

@@ -219,3 +219,52 @@ def test_mega_batch_scratch_holds_no_powers(recorded):
         _cuda.mega_batch_segment(
             *ops, order=4, scaling=0, n_iters=2, adam=adam, scratch=scratch,
             clocks=torch.zeros((S - 1, 7), dtype=torch.int64, device=dev))
+
+
+# ---- kernel 4 (the state chain's forward) in the team form -----------------
+
+@pytest.mark.parametrize("M", _cuda.SUPPORTED_M)
+@pytest.mark.parametrize("C", [1, 13, 130, 256, 1024])
+def test_state_chain_forward_geometry(M, C):
+    """Kernels 4 and 5 launch alike: a team of team_lanes(M) lanes per
+    column, one-warp blocks of 32 / L columns, every column in a block and
+    no block empty."""
+    g = _cuda.chain_geometry(M, C)
+    L = _cuda.team_lanes(M)
+    assert g == (L, 32, -(-C * L // 32))
+    cols = 32 // L
+    assert (g.blocks - 1) * cols < C <= g.blocks * cols
+
+
+def test_state_chain_forward_smem_is_weighed():
+    """Kernel 4's shared memory (the generators in team_slots(K) slots and
+    the Taylor coefficients) enters chain_fits beside kernels 5 and 6."""
+    K, M, order = 6, 8, 4
+    assert _cuda.state_chain_forward_smem(K, M, order) == 4 * (
+        8 * M * (M + 1) + order)
+    for K, M, order, s in ((3, 4, 3, 0), (16, 12, 12, 2), (6, 8, 4, 1)):
+        need = max(_cuda.state_chain_forward_smem(K, M, order),
+                   _cuda.state_chain_backward_smem(K, M, order, s),
+                   _cuda.mega_batch_smem(K, M, 1, order, s))
+        assert _cuda.chain_fits(K, M, order, s) == (
+            need <= _cuda.CHAIN_SMEM_MAX)
+        assert _cuda.state_chain_forward_smem(K, M, order) <= need
+
+
+def test_state_chain_forward_launch(recorded):
+    """The forward allocates its outputs only and passes the problem's
+    order and scaling (its smem is sized from them)."""
+    rec, allocs = recorded
+    K, M, C, T, order, s = 3, 10, 5, 7, 4, 1
+    mats = empty_meta((K, M, M))
+    w = empty_meta((T, K, C))
+    psi0 = empty_meta((M, C))
+    allocs.clear()
+    _cuda.state_chain_forward(mats, w, psi0, order, s)
+    assert allocs == [(M, C), (T + 1, M, C)]      # out, trajectory
+    (name, args), = rec.calls
+    assert name == "qoc_state_chain_forward"
+    assert args[3:9] == (K, M, T, C, order, s)
+    with pytest.raises(ValueError, match="bounds"):
+        _cuda.state_chain_forward(empty_meta((17, M, M)),
+                                  empty_meta((T, 17, C)), psi0, order, s)

@@ -1,5 +1,5 @@
-"""Time kernels 5 and 6 of qoc_tpu_torch on the card, at chip_smoke.py's
-phase-5 shapes and phase-6 cases, and compare two checkouts in turns.
+"""Time kernels 3-6 of qoc_tpu_torch on the card, at chip_smoke.py's
+shapes, and compare two checkouts in turns.
 
     python3 tools/chain_kernel_bench.py [--root DIR]
     python3 tools/chain_kernel_bench.py --compare PARENT_DIR
@@ -8,10 +8,14 @@ phase-5 shapes and phase-6 cases, and compare two checkouts in turns.
 ``--root`` names the checkout whose ``qoc_tpu_torch`` is timed (default:
 this repository); its kernels are built into its own ``.torch_ext_build``.
 The problems and inputs are those of this repository's chip_smoke.py
-(phase 5: kernel 5, the state chain's backward, on its four column counts;
-phase 6: kernel 6, 20 iterations of each of its six cases, timed as phase
-6 times them).  Each shape prints one line ``bench {...}``; a run ends with
-ptxas' registers and spills of the two kernels from the build log.
+(phases 3 and 3b: kernel 3, the fused segment, 100 iterations of the pi
+pulse, the CNOT, config 3, the all-seven ladder and the state transfer,
+per iteration, and ``Grape`` on config 3's job, 5000 iterations, its wall
+seconds; phase 5: kernels 4 and 5, the state chain's forward and
+backward, on its four column counts; phase 6: kernel 6, 20 iterations of
+each of its six cases, timed as phase 6 times them).  Each shape prints
+one line ``bench {...}``; a run ends with ptxas' registers and spills of
+kernels 3-6 from the build log.
 
 ``--compare`` runs the timing four times, each in its own process, in the
 order PARENT_DIR, this repository, this repository, PARENT_DIR, and prints
@@ -42,28 +46,32 @@ import numpy as np
 HERE = str(Path(__file__).resolve().parents[1])
 
 
+# the kernels whose ptxas report is read: a mangled-name pattern and the
+# names of its template arguments (M, generator slots, costs flag)
+_ENTRIES = (
+    ("k3", r"mega_segment_kernelILi(\d+)ELb(\d)E", ("M", "costs")),
+    ("k4", r"state_chain_forward_kernelILi(\d+)E(?:Li(\d+)E)?", ("M", "KG")),
+    ("k5", r"state_chain_backward_kernelILi(\d+)E(?:Li(\d+)E)?", ("M", "KG")),
+    ("k6", r"mega_batch_kernelILi(\d+)E(?:Li(\d+)E)?Lb(\d)E",
+     ("M", "KG", "costs")),
+)
+
+
 def _ptxas(log_path: str) -> dict:
-    """Registers and spill bytes of kernels 5 and 6 per instance."""
+    """Registers and spill bytes of kernels 3-6 per instance."""
     out, name = {}, None
     with open(log_path) as f:
         for line in f:
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                ent = m.group(1)
-                # template arguments: M, then the generator slots (where
-                # the kernel has them), then kernel 6's costs flag
-                k5 = re.search(
-                    r"state_chain_backward_kernelILi(\d+)E(?:Li(\d+)E)?", ent)
-                k6 = re.search(
-                    r"mega_batch_kernelILi(\d+)E(?:Li(\d+)E)?Lb(\d)E", ent)
                 name = None
-                if k5:
-                    name = f"k5_M{k5.group(1)}" + (
-                        f"_KG{k5.group(2)}" if k5.group(2) else "")
-                elif k6:
-                    kind = "costs" if k6.group(3) == "1" else "fid"
-                    slots = f"_KG{k6.group(2)}" if k6.group(2) else ""
-                    name = f"k6_M{k6.group(1)}{slots}_{kind}"
+                for tag, pat, args in _ENTRIES:
+                    k = re.search(pat, m.group(1))
+                    if k:
+                        name = tag + "".join(
+                            f"_{a}{v}" for a, v in zip(args, k.groups())
+                            if v is not None)
+                        break
                 continue
             if name is None:
                 continue
@@ -79,9 +87,54 @@ def _ptxas(log_path: str) -> dict:
     return out
 
 
+def _kernel3(cs, dev, problems) -> list:
+    """Kernel 3 per iteration (100-iteration segments, timed as phases 3
+    and 3b time them), and Grape's wall on config 3's job."""
+    import contextlib
+    import io
+    import time
+
+    import qoc_tpu_torch as q
+    from qoc_tpu_torch.ops.mega import make_mega_segment_runner
+    from qoc_tpu_torch.optim.convergence import ConvergenceSettings
+
+    n = 100
+    leak = problems["transmon_leakage"]
+    conv3 = ConvergenceSettings.from_dict(leak["kwargs"]["convergence"])
+    cases = [
+        ("pi_pulse", problems["pi_pulse"], None,
+         problems["pi_pulse"]["kwargs"]["convergence"]),
+        ("cnot", problems["cnot"], None,
+         problems["cnot"]["kwargs"]["convergence"]),
+        ("transmon_leakage", leak, leak["kwargs"]["reg_coeffs"], None),
+        ("all_seven_unitary", cs._ladder(False), cs.ALL_SEVEN, None),
+        ("state_speed_up_bandpass_forbidden", cs._ladder(True),
+         cs.SPD_BP_FORB, None),
+    ]
+    recs = []
+    for name, prob, rc, conv_d in cases:
+        p = cs._build_problem(prob)
+        conv = (conv3 if conv_d is None
+                else ConvergenceSettings.from_dict(conv_d))
+        init, run, _ = make_mega_segment_runner(
+            p, conv, throughput=True, reg_coeffs=rc, device=dev)
+        ms = cs._timed_ms(lambda: run(init(p.u0_base), n), 5)
+        recs.append(dict(kernel="mega_segment" if rc is None
+                         else "mega_segment_costs", shape=name,
+                         ms_per_iter=ms / n))
+    with contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        res = q.Grape(*leak["args"], engine="auto", **leak["kwargs"])
+        wall = time.perf_counter() - t0
+    recs.append(dict(kernel="grape", shape="transmon_leakage",
+                     iterations=res.iterations, loss=res.loss, ms=wall * 1e3))
+    return recs
+
+
 def run(root: str) -> list:
-    """Time kernel 5 at phase 5's shapes and kernel 6 at phase 6's cases
-    with the checkout ``root``'s package; returns the records."""
+    """Time kernel 3 at phases 3-4's problems, kernels 4 and 5 at phase
+    5's shapes and kernel 6 at phase 6's cases with the checkout
+    ``root``'s package; returns the records."""
     sys.path.insert(0, root)
     import torch
 
@@ -99,10 +152,10 @@ def run(root: str) -> list:
         raise RuntimeError(f"{_cuda.__file__} is not under {root}")
     dev = torch.device("cuda", 0)
     lib = _cuda.build()
-    recs = []
     problems = cs._problems()
+    recs = _kernel3(cs, dev, problems)
 
-    # phase 5: kernel 5 (and kernel 4, whose trajectory it reads)
+    # phase 5: kernels 4 and 5
     rng = np.random.default_rng(1)
     cases = [("pi_pulse", cs._pi05(), 1024),
              ("cnot", cs._build_problem(problems["cnot"]), 256),
@@ -119,6 +172,10 @@ def run(root: str) -> list:
         p0 = psi0[:, np.arange(C) % psi0.shape[1]].contiguous()
         R = cs._on(dev, rng.standard_normal((M, C)).astype(np.float32))
         _, traj = _cuda.state_chain_forward(mats, w, p0, order, s)
+        ms = cs._timed_ms(lambda: _cuda.state_chain_forward(
+            mats, w, p0, order, s), 5)
+        recs.append(dict(kernel="state_chain_forward", shape=name,
+                         columns=C, ms=ms))
         ms = cs._timed_ms(lambda: _cuda.state_chain_backward(
             mats, w, traj, R, order, s), 5)
         recs.append(dict(kernel="state_chain_backward", shape=name,
