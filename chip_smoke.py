@@ -9,7 +9,12 @@ Phases (each prints one line with its numbers; any failed check raises):
   1. the card (``nvidia-smi`` name and power limit), torch / CUDA versions,
      and the time to build the CUDA kernels from ``qoc_tpu_torch/csrc``;
   2. the tree chain kernels (forward and backward) against
-     ``tree_chain_reference`` at four shapes, Tp up to 8192;
+     ``tree_chain_reference`` at four shapes, Tp up to 8192, each launched
+     twice (the same bits both times), with the launch geometry (a cluster
+     of G blocks in teams of lanes), the residuals' floats, ptxas'
+     registers and spills of both kernels, the clock64 split
+     (``_cuda.TREE_FWD_CLOCK_PHASES``, ``TREE_BWD_CLOCK_PHASES``) and each
+     kernel's device time (``torch.profiler``) beside its time per call;
   3. the fused Adam segment kernel against ``mega_segment_reference``,
      100 iterations on the full-size pi pulse and CNOT problems, launched
      twice (the same bits both times), with its launch geometry (a cluster
@@ -106,6 +111,27 @@ def _timed_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, name: str, reps: int = 20) -> float:
+    """The mean device time of the kernels whose name contains ``name``,
+    per call of ``fn``, from ``torch.profiler`` (0.0 where the profiler
+    sees no device time): the kernel alone, without the host's time per
+    call that ``_timed_ms`` also counts when a call is short."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages() if name in e.key)
+    return us / 1e3 / reps
+
+
 def _rel(a, b) -> float:
     a = a.detach().double().cpu()
     b = b.detach().double().cpu()
@@ -163,8 +189,108 @@ def chain_macs(T: int, C: int, K: int, M: int, order: int, scaling: int):
     return T * C * (K + (1 << scaling) * order) * M * M
 
 
+# the kernels whose ptxas report is read from the build log: a tag, a
+# mangled-name pattern and the names of its template arguments
+PTXAS_ENTRIES = (
+    ("k1", r"tree_forward_kernelILi(\d+)E", ("M",)),
+    ("k2", r"tree_backward_kernelILi(\d+)E", ("M",)),
+    ("k3", r"mega_segment_kernelILi(\d+)ELb(\d)E", ("M", "costs")),
+    ("k4", r"state_chain_forward_kernelILi(\d+)E(?:Li(\d+)E)?", ("M", "KG")),
+    ("k5", r"state_chain_backward_kernelILi(\d+)E(?:Li(\d+)E)?", ("M", "KG")),
+    ("k6", r"mega_batch_kernelILi(\d+)E(?:Li(\d+)E)?Lb(\d)E",
+     ("M", "KG", "costs")),
+)
+
+
+def ptxas_report(log_path: str, tags=None) -> dict:
+    """Registers and spill bytes (stores, loads) per kernel instance, read
+    from ptxas' report in the build log; ``tags`` keeps those kernels
+    only."""
+    import re
+
+    out, name = {}, None
+    with open(log_path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = None
+                for tag, pat, args in PTXAS_ENTRIES:
+                    k = re.search(pat, m.group(1))
+                    if k and (tags is None or tag in tags):
+                        name = tag + "".join(
+                            f"_{a}{v}" for a, v in zip(args, k.groups())
+                            if v is not None)
+                        break
+                continue
+            if name is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                out.setdefault(name, {})["spill"] = [int(m.group(1)),
+                                                     int(m.group(2))]
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out.setdefault(name, {})["registers"] = int(m.group(1))
+                name = None
+    return out
+
+
+# phase 2's shapes: (K, M, T, order, scaling)
+TREE_SHAPES = [(3, 4, 1000, 2, 0), (6, 8, 1000, 3, 0), (3, 12, 777, 6, 2),
+               (3, 4, 5000, 2, 0)]
+
+
+def tree_bound(K: int, M: int, T: int, order: int, s: int, nbytes_fwd: int,
+               nbytes_bwd: int) -> dict:
+    """The bounds of kernels 1 and 2 from the function's own work, the same
+    for any implementation.  Forward: per real step the generator sum_k
+    w_k mats_k (K M^2 multiply-adds), order - 1 Taylor products and s
+    squarings (M^3 each), and the T - 1 products of the chain; backward
+    (the VJP from mats, w and gbar): per step the generator and the
+    propagator again, the reverse of its products (two each), Pbar_t =
+    nu_{t+1} X_t^T and the weight cotangents (K M^2), and the T - 1
+    products each of the prefixes X_t and of the cotangents nu_t.  Bytes:
+    the function's operands, each read or written once (mats, w and E
+    forward; mats, w, gbar and wbar backward)."""
+    step = order - 1 + s
+    fwd = T * (K * M * M + step * M ** 3) + (T - 1) * M ** 3
+    bwd = (T * (2 * K * M * M + (3 * step + 1) * M ** 3)
+           + 2 * (T - 1) * M ** 3)
+    fb, fby = _bound(2 * fwd, nbytes_fwd)
+    bb, bby = _bound(2 * bwd, nbytes_bwd)
+    return dict(fwd_bound_ms=fb, fwd_bound_by=fby, bwd_bound_ms=bb,
+                bwd_bound_by=bby)
+
+
+def _tree_trace(mats, wp, R, order: int, s: int, dev) -> dict:
+    """One more launch of each tree kernel with its clock64 counters: each
+    phase's share of thread 0's cycles summed over blocks, and the slowest
+    block's cycles; and the launch geometry (G blocks, teams of lanes, each
+    team's segment of lanes)."""
+    import torch
+
+    from qoc_tpu_torch.ops import _cuda
+
+    geo = _cuda.tree_geometry(mats.shape[1], wp.shape[1], mats.shape[0],
+                              order, s)
+    out = dict(geometry=geo._asdict())
+    cf = torch.zeros((geo.blocks, len(_cuda.TREE_FWD_CLOCK_PHASES)),
+                     dtype=torch.int64, device=dev)
+    _, res = _cuda.tree_forward(mats, wp, order, s, clocks=cf)
+    cb = torch.zeros((geo.blocks, len(_cuda.TREE_BWD_CLOCK_PHASES)),
+                     dtype=torch.int64, device=dev)
+    _cuda.tree_backward(mats, wp, res, R, order, s, clocks=cb)
+    for tag, c, phases in (("fwd", cf, _cuda.TREE_FWD_CLOCK_PHASES),
+                           ("bwd", cb, _cuda.TREE_BWD_CLOCK_PHASES)):
+        out[f"{tag}_clock_split"] = _cuda.clock_split(c, phases)
+        out[f"{tag}_clock_cycles_slowest_block"] = int(c.sum(dim=1).max())
+    return out
+
+
 def phase_tree(dev) -> dict:
-    """Kernels 1 and 2 against the plain version, forward and gradient."""
+    """Kernels 1 and 2 against the plain version, forward and gradient, at
+    TREE_SHAPES; a second launch of each must repeat the bits."""
     import torch
 
     from qoc_tpu_torch.ops import _cuda
@@ -174,8 +300,9 @@ def phase_tree(dev) -> dict:
     rng = np.random.default_rng(0)
     worst = {"tree_forward": 0.0, "tree_backward": 0.0}
     times = {}
-    for K, M, T, order, s in [(3, 4, 1000, 2, 0), (6, 8, 1000, 3, 0),
-                              (3, 12, 777, 6, 2), (3, 4, 5000, 2, 0)]:
+    ptxas = ptxas_report(str(_cuda.build().parent / "build.log"),
+                         ("k1", "k2"))
+    for K, M, T, order, s in TREE_SHAPES:
         mats = torch.tensor(_generators(K, M, T, rng), device=dev)
         w_h = rng.standard_normal((K, T)).astype(np.float32)
         w_h[0] = 1.0
@@ -198,34 +325,40 @@ def phase_tree(dev) -> dict:
         worst["tree_backward"] = max(worst["tree_backward"], _abs(g_k, g_r))
 
         wp = _pad_lanes(w.detach()).contiguous()
-        E0, an, sq, tree = _cuda.tree_forward(mats, wp, order, s)
-        wbar = _cuda.tree_backward(mats, an, sq, tree, R, order, s)
-        # step generators, Taylor powers and squarings per step, and the
-        # T - 1 products of the tree; the backward: two products per tree
-        # node and per power or squaring, and the weight cotangent
-        fwd_macs = (T * (K * M * M + (order - 1 + s) * M ** 3)
-                    + (T - 1) * M ** 3)
-        bwd_macs = (2 * (T - 1) * M ** 3
-                    + T * (2 * (order - 1 + s) * M ** 3 + K * M * M))
-        fb, fby = _bound(2 * fwd_macs, _nbytes(mats, wp, E0, an, sq, tree))
-        bb, bby = _bound(2 * bwd_macs, _nbytes(mats, an, sq, tree, R, wbar))
+        E0, res = _cuda.tree_forward(mats, wp, order, s)
+        wbar = _cuda.tree_backward(mats, wp, res, R, order, s)
+        E1, res1 = _cuda.tree_forward(mats, wp, order, s)
+        wbar1 = _cuda.tree_backward(mats, wp, res1, R, order, s)
+        if not (torch.equal(E0, E1) and torch.equal(wbar, wbar1)):
+            raise AssertionError(
+                f"tree kernels at K={K} M={M} T={T}: a second launch on the "
+                "same inputs gave other bits")
+        t = tree_bound(K, M, T, order, s, _nbytes(mats, w, E0),
+                       _nbytes(mats, w, R, wbar))
         reps = 20
-        t = dict(
-            fwd_bound_ms=fb, fwd_bound_by=fby, bwd_bound_ms=bb,
-            bwd_bound_by=bby,
+        t.update(
             fwd_ms=_timed_ms(lambda: _cuda.tree_forward(mats, wp, order, s),
                              reps),
             fwd_plain_ms=_timed_ms(
                 lambda: tree_chain_reference(mats, w.detach(), order, s),
                 reps),
             bwd_ms=_timed_ms(lambda: _cuda.tree_backward(
-                mats, an, sq, tree, R, order, s), reps),
+                mats, wp, res, R, order, s), reps),
             bwd_plain_ms=_timed_ms(lambda: torch.autograd.grad(
                 E_r, w, grad_outputs=R, retain_graph=True), reps),
+            fwd_device_ms=device_ms(lambda: _cuda.tree_forward(
+                mats, wp, order, s), "tree_forward_kernel"),
+            bwd_device_ms=device_ms(lambda: _cuda.tree_backward(
+                mats, wp, res, R, order, s), "tree_backward_kernel"),
         )
         times[(K, M, T, order, s)] = t
         _line("phase2", K=K, M=M, T=T, order=order, scaling=s,
-              fwd_max_rel_err=fwd_rel, grad_max_rel_err=bwd_rel, **t)
+              fwd_max_rel_err=fwd_rel, grad_max_rel_err=bwd_rel,
+              repeat_bit_identical=True,
+              residual_floats=res.numel(),
+              ptxas={k: v for k, v in ptxas.items()
+                     if k in (f"k1_M{M}", f"k2_M{M}")},
+              **t, **_tree_trace(mats, wp, R, order, s, dev))
     return {"worst": worst, "times": times}
 
 

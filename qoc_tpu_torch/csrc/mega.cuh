@@ -89,7 +89,8 @@
 #include <math.h>
 
 #include "sm90.cuh"
-#include "state_chain.cuh"   // team_lanes, team_sum, kFullMask
+#include "state_chain.cuh"
+#include "team.cuh"   // Team, ld_col, dot, block_sum, team_lanes, team_sum
 
 namespace qoc {
 
@@ -124,8 +125,6 @@ struct CostArgs {
   int nforb, F, traj;
   float a_amp, a_env, a_dwdt, a_d2, inv_dt, a_bp, a_spd, spd_c0, forb_c0;
 };
-
-__host__ __device__ constexpr int mega_mp(int M) { return (M + 3) & ~3; }
 
 // Most threads of a block: at most 64 teams of team_lanes(M) lanes, and
 // at most 256 in the costs instance, whose phases keep more live values
@@ -211,59 +210,6 @@ __host__ __device__ inline MegaGeometry mega_geometry(int M, int Tp, int K,
   if (g.total * 4 > kMegaSmemMax) g.G = 0;
   return g;
 }
-
-// Deterministic block sum: every thread passes its part and gets the
-// total.  red has blockDim.x entries (a power of two).
-__device__ __forceinline__ float block_sum(float part, float* red) {
-  const int tid = threadIdx.x;
-  red[tid] = part;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] += red[tid + s];
-    __syncthreads();
-  }
-  const float total = red[0];
-  __syncthreads();   // red is reused by the caller
-  return total;
-}
-
-// Sum over a warp's 32 lanes by a butterfly (every lane the same value).
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(kFullMask, x, off);
-  return x;
-}
-
-// v[0..M) <- p[0..M) (a column in shared memory, 16-byte aligned), by
-// float4 reads of the padded column.
-template <int M>
-__device__ __forceinline__ void ld_col(const float* p, float (&v)[M]) {
-#pragma unroll
-  for (int q = 0; q < mega_mp(M) / 4; ++q) {
-    const float4 f = *reinterpret_cast<const float4*>(p + 4 * q);
-    if (4 * q + 0 < M) v[4 * q + 0] = f.x;
-    if (4 * q + 1 < M) v[4 * q + 1] = f.y;
-    if (4 * q + 2 < M) v[4 * q + 2] = f.z;
-    if (4 * q + 3 < M) v[4 * q + 3] = f.w;
-  }
-}
-
-template <int M>
-__device__ __forceinline__ float dot(const float (&a)[M],
-                                     const float (&b)[M]) {
-  float s = 0.0f;
-#pragma unroll
-  for (int j = 0; j < M; ++j) s += a[j] * b[j];
-  return s;
-}
-
-// A team lane's place: its team, its lane, the row it computes (M - 1 for
-// lanes >= M, which store nothing) and whether it owns that row.
-struct Team {
-  int idx, lane, row;
-  bool rl;
-};
 
 // The lane's row and column of A_t = live mats_0 + sum_k amp_k sw_k[t]
 // mats_k (S: mats [K][M][M + 1] in shared memory); zero where !live.

@@ -42,7 +42,7 @@
 
 #include <type_traits>
 
-#include "tree_chain.cuh"   // QOC_DISPATCH_M
+#include "team.cuh"   // kFullMask, team_lanes, team_sum, QOC_DISPATCH_M
 
 namespace qoc {
 
@@ -59,13 +59,6 @@ constexpr int kMaxK = 16;   // generators per step (drift + controls + extras)
 // each) with the slots past K zero, so the channel loops unroll with no
 // test of K.  A zero slot adds fma(0, s, y) = y: the values are those of
 // K slots exactly.
-
-constexpr unsigned kFullMask = 0xffffffffu;
-
-// Lanes of a column's team: the least power of two >= M (M <= 16).
-__host__ __device__ constexpr int team_lanes(int M) {
-  return M <= 2 ? 2 : M <= 4 ? 4 : M <= 8 ? 8 : 16;
-}
 
 // Generator slots of the team form: the least of 4, 8, 16 that holds K.
 __host__ __device__ constexpr int team_slots(int K) {
@@ -130,16 +123,6 @@ struct TeamSmem {
 template <int M, int KG>
 using TeamGen = std::conditional_t<(KG * M <= 48), TeamRegs<M, KG>,
                                    TeamSmem<M, KG>>;
-
-// Sum over the L lanes of a team, by a butterfly: every lane gets the same
-// value (float addition commutes), in a fixed order.
-template <int L>
-__device__ __forceinline__ float team_sum(float x) {
-#pragma unroll
-  for (int off = L / 2; off > 0; off >>= 1)
-    x += __shfl_xor_sync(kFullMask, x, off, L);
-  return x;
-}
 
 // Row `row` of sum_k wk[k] * (S_k @ x), x held one row per lane: the
 // products of a serial walk over the row, in its order (j inside, k

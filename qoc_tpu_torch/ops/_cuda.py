@@ -19,6 +19,7 @@ adds one to its entry of ``LAUNCHES``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -35,7 +36,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / ".torch_ext_build"
 SOURCES = ("tree_chain.cu", "mega.cu", "mega_costs.cu", "state_chain.cu",
            "mega_batch.cu", "mega_batch_costs.cu", "expm.cu")
 HEADERS = ("tree_chain.cuh", "mega.cuh", "state_chain.cuh", "mega_batch.cuh",
-           "expm.cuh", "sm90.cuh")
+           "expm.cuh", "sm90.cuh", "team.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -170,8 +171,8 @@ def _library():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             lib.qoc_tree_forward.argtypes = [_P, _P, _I, _I, _I, _I, _I,
-                                             _P, _P, _P, _P, _P]
-            lib.qoc_tree_backward.argtypes = [_P, _I, _I, _I, _I, _I, _P, _P,
+                                             _P, _P, _P, _P]
+            lib.qoc_tree_backward.argtypes = [_P, _P, _I, _I, _I, _I, _I,
                                               _P, _P, _P, _P, _P]
             mega = ([_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I]
                     + [_P] * 12 + [_F] * 11)
@@ -238,49 +239,146 @@ def _raise_on(code: int, name: str) -> None:
 
 
 def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    """PyTorch's current stream on ``dev``, as a raw handle (the call
+    Inductor's generated code uses: no Stream object per launch)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
-def residual_shapes(M: int, Tp: int, order: int, scaling: int):
-    """Shapes of the Taylor-power, pre-squaring and tree-level residuals."""
-    L = Tp.bit_length() - 1
-    return ((max(order - 1, 1), M, M, Tp), (max(scaling, 1), M, M, Tp),
-            (L, M, M, Tp))
+class TreeGeometry(NamedTuple):
+    """The launch of kernels 1 and 2 (``tree_geometry`` in tree_chain.cuh)."""
+
+    blocks: int     # G blocks on G SMs, a cluster in kernel 1 (0: no fit)
+    threads: int    # per block
+    team: int       # lanes per team (team_lanes(M))
+    teams: int      # per block, one segment each
+    lanes_per_block: int   # Tp / G
+    segment: int    # lanes a team walks
+    smem_fwd: int   # dynamic shared memory of a block, bytes: kernel 1
+    smem_bwd: int   # kernel 2
 
 
-def tree_forward(mats, w, order: int, scaling: int):
-    """Kernel 1: mats [K, M, M], w [K, Tp] (Tp a power of two, padded lanes
-    all zero) -> (E [M, M], an, sq, tree residuals)."""
-    dev = _check(mats, w)
-    K, M, _ = mats.shape
-    Tp = w.shape[1]
+TREE_THREADS = 512         # kTreeThreads in tree_chain.cuh
+TREE_MAX_BLOCKS = 8        # kTreeMaxBlocks
+TREE_SMEM_MAX = 232448     # kTreeSmemMax
+TREE_TEAM_MATS = 3         # kTreeTeamMats: kernel 2's team scratch
+
+
+def _tree_layout(G: int, M: int, Tp: int, K: int, order: int,
+                 cap: int) -> TreeGeometry:
+    """``tree_layout`` in tree_chain.cuh: the block's threads and the
+    floats of both kernels' shared memory.  Both: the generators
+    [K][M][M+1] and 1/k for k <= order.  Kernel 1: the block's tree of
+    segment products, the cluster's products, each team's P_t.  Kernel 2:
+    the prefix at each lane, nu at each segment boundary, and the tree with
+    the cluster's products, or (later, in the same place) each team's
+    three matrices of scratch."""
+    L = team_lanes(M)
+    TB = Tp // G
+    NT = min(max(TB * L, 32), cap)
+    teams = NT // L
+    S = TB // teams if TB > teams else 1
+    mat = M * ((M + 3) & ~3)
+    head = _al4(K * M * (M + 1)) + _al4(order + 1)
+    fwd = head + (2 * teams - 1 + G + teams) * mat
+    bwd = head + (teams * S + teams + 1) * mat + max(
+        (2 * teams - 1 + G) * mat, teams * TREE_TEAM_MATS * mat)
+    return TreeGeometry(G, NT, L, teams, TB, S, 4 * fwd, 4 * bwd)
+
+
+@functools.lru_cache(maxsize=256)
+def tree_geometry(M: int, Tp: int, K: int, order: int,
+                  scaling: int) -> TreeGeometry:
+    """Kernels 1-2's rule (``tree_geometry`` in tree_chain.cuh): G = Tp / 32
+    blocks, between 1 and 8 (a portable cluster), of at most 64 teams and
+    512 threads; where kernel 2's shared memory would not fit, half the
+    threads, down to one warp; ``blocks`` is 0 where nothing fits.
+    ``scaling`` does not enter: no squaring is stored, the pre-squaring
+    values are recomputed in the team's scratch."""
+    G = min(max(Tp // 32, 1), TREE_MAX_BLOCKS)
+    cap = min(64 * team_lanes(M), TREE_THREADS)
+    g = _tree_layout(G, M, Tp, K, order, cap)
+    while g.smem_bwd > TREE_SMEM_MAX and cap > 32:
+        cap //= 2
+        g = _tree_layout(G, M, Tp, K, order, cap)
+    return g if g.smem_bwd <= TREE_SMEM_MAX else g._replace(blocks=0)
+
+
+@functools.lru_cache(maxsize=256)
+def residual_shape(M: int, Tp: int, K: int, order: int, scaling: int):
+    """Shape of kernel 1's residuals: each segment's product (G teams of
+    them), then each block's, [G teams + G, M, M]: about (Tp / S + G) M^2
+    floats."""
+    g = tree_geometry(M, Tp, K, order, scaling)
+    return (g.blocks * (g.teams + 1), M, M)
+
+
+# kernels 1-2's clock64 phases, in the order of their counters
+# (kTreeFwdPhases, kTreeBwdPhases in tree_chain.cuh)
+TREE_FWD_CLOCK_PHASES = ("walks", "block_tree", "cluster")
+TREE_BWD_CLOCK_PHASES = ("block_tree", "cluster", "down_tree", "walks",
+                         "reverse_walks", "taylor_reverse")
+
+
+def _tree_checks(K: int, M: int, Tp: int, order: int,
+                 scaling: int) -> TreeGeometry:
     _check_shape(K, M, Tp)
+    if order < 0 or not 0 <= scaling <= 30:
+        raise ValueError(f"Taylor order {order}, scaling {scaling} outside "
+                         "the tree kernels' bounds (order >= 0, scaling "
+                         "<= 30)")
+    geo = tree_geometry(M, Tp, K, order, scaling)
+    if geo.blocks == 0:
+        raise ValueError(
+            f"tree kernels at M={M}, Tp={Tp}, K={K}, order {order} need more "
+            f"than {TREE_SMEM_MAX} bytes of shared memory per block")
+    return geo
+
+
+def tree_forward(mats, w, order: int, scaling: int, clocks=None):
+    """Kernel 1: mats [K, M, M], w [K, Tp] (Tp a power of two, padded lanes
+    all zero) -> (E [M, M], res): E = P_{Tp-1} ... P_0 and the residuals
+    of ``residual_shape``.  The launch is one cluster of
+    ``tree_geometry(...).blocks`` blocks.  ``clocks`` (int64 [rows >= those
+    blocks, len(TREE_FWD_CLOCK_PHASES)], zeroed by the caller) receives
+    each block's clock64 cycles per phase."""
+    dev = _check(mats, w)
+    K, M, M2 = mats.shape
+    Tp = w.shape[1]
+    geo = _tree_checks(K, M, Tp, order, scaling)
+    if M2 != M or tuple(w.shape) != (K, Tp):
+        raise ValueError(f"generators {tuple(mats.shape)} and weights "
+                         f"{tuple(w.shape)} do not match")
+    _check_clocks(clocks, dev, geo.blocks, TREE_FWD_CLOCK_PHASES)
     E = torch.empty((M, M), dtype=torch.float32, device=dev)
-    an, sq, tree = (torch.empty(s, dtype=torch.float32, device=dev)
-                    for s in residual_shapes(M, Tp, order, scaling))
-    lib = _library()
-    code = lib.qoc_tree_forward(
+    res = torch.empty(residual_shape(M, Tp, K, order, scaling),
+                      dtype=torch.float32, device=dev)
+    code = _library().qoc_tree_forward(
         mats.data_ptr(), w.data_ptr(), K, M, Tp, order, scaling,
-        E.data_ptr(), an.data_ptr(), sq.data_ptr(), tree.data_ptr(),
-        _stream(dev))
+        E.data_ptr(), res.data_ptr(),
+        None if clocks is None else clocks.data_ptr(), _stream(dev))
     _raise_on(code, "tree_forward")
     LAUNCHES["tree_forward"] += 1
-    return E, an, sq, tree
+    return E, res
 
 
-def tree_backward(mats, an, sq, tree, gbar, order: int, scaling: int):
-    """Kernel 2: residuals of ``tree_forward`` and gbar [M, M] (cotangent
-    of E) -> wbar [K, Tp]."""
-    dev = _check(mats, an, sq, tree, gbar)
-    K, M, _ = mats.shape
-    Tp = tree.shape[-1]
-    _check_shape(K, M, Tp)
-    bar = torch.empty((M, M, Tp), dtype=torch.float32, device=dev)
+def tree_backward(mats, w, res, gbar, order: int, scaling: int,
+                  clocks=None):
+    """Kernel 2: the forward's operands and residuals, gbar [M, M] (the
+    cotangent of E) -> wbar [K, Tp].  ``clocks``: as ``tree_forward``'s,
+    with ``TREE_BWD_CLOCK_PHASES``."""
+    dev = _check(mats, w, res, gbar)
+    K, M, M2 = mats.shape
+    Tp = w.shape[1]
+    geo = _tree_checks(K, M, Tp, order, scaling)
+    if (M2 != M or tuple(w.shape) != (K, Tp) or tuple(gbar.shape) != (M, M)
+            or tuple(res.shape) != residual_shape(M, Tp, K, order, scaling)):
+        raise ValueError("tree backward operands do not match the forward's")
+    _check_clocks(clocks, dev, geo.blocks, TREE_BWD_CLOCK_PHASES)
     wbar = torch.empty((K, Tp), dtype=torch.float32, device=dev)
     code = _library().qoc_tree_backward(
-        mats.data_ptr(), K, M, Tp, order, scaling, an.data_ptr(),
-        sq.data_ptr(), tree.data_ptr(), gbar.data_ptr(), bar.data_ptr(),
-        wbar.data_ptr(), _stream(dev))
+        mats.data_ptr(), w.data_ptr(), K, M, Tp, order, scaling,
+        res.data_ptr(), gbar.data_ptr(), wbar.data_ptr(),
+        None if clocks is None else clocks.data_ptr(), _stream(dev))
     _raise_on(code, "tree_backward")
     LAUNCHES["tree_backward"] += 1
     return wbar

@@ -5,9 +5,11 @@
     A_t = sum_k w[k, t] mats[k]
 
 ``fused_tree_chain`` runs it on the card through the hand-written CUDA
-kernels of ``csrc/tree_chain.cu`` (forward: Taylor steps, squarings and a
-pairwise product tree; backward: the exact reverse of all three), wrapped
-in a ``torch.autograd.Function`` that is differentiable in the weights.
+kernels of ``csrc/tree_chain.cu`` (forward: teams of lanes walk segments
+of steps, a tree per block, the cluster's products; backward: the prefixes
+and cotangents down the same tree, the squarings and the Taylor series
+reversed per step), wrapped in a ``torch.autograd.Function`` that is
+differentiable in the weights.
 ``tree_chain_reference`` is the plain torch version of the same function:
 the same zero padding to a power of two and the same factor order, with
 autograd for the gradient.  The wrapper uses the plain version for CPU
@@ -37,8 +39,8 @@ def levels(Tp: int) -> int:
 def tree_chain_supported(M_real: int, steps: int) -> bool:
     """qoc_tpu's admission rule, kept so both packages route alike:
     M_real <= 12 and residuals under 10 MB.  The rule was sized for TPU
-    VMEM; the H100 kernels keep residuals in device memory, and their own
-    bound is still to be measured."""
+    VMEM; the H100 kernels keep only segment and block products, and take
+    every shape it admits (``_cuda.tree_geometry``)."""
     MM = M_real * M_real
     Tp = next_pow2(max(steps, 2))
     bufs = (4 + levels(Tp)) * MM * Tp * 4
@@ -70,14 +72,15 @@ def _entry(x: torch.Tensor, bdim, b: int) -> torch.Tensor:
 
 
 class _TreeBackward(torch.autograd.Function):
-    """Kernel 2: the residuals of kernel 1 and gbar [M, M] -> wbar [K, Tp].
-    A Function of its own, so that a vmapped gradient reaches the kernel
-    through the vmap rule below (a raw launch cannot be vmapped)."""
+    """Kernel 2: the padded weights, the residuals of kernel 1 and gbar
+    [M, M] -> wbar [K, Tp].  A Function of its own, so that a vmapped
+    gradient reaches the kernel through the vmap rule below (a raw launch
+    cannot be vmapped)."""
 
     @staticmethod
-    def forward(mats, an, sq, tree, gbar, order, scaling):
+    def forward(mats, w, res, gbar, order, scaling):
         return _cuda.tree_backward(*(x.contiguous() for x in (
-            mats, an, sq, tree, gbar)), order, scaling)
+            mats, w, res, gbar)), order, scaling)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -89,9 +92,9 @@ class _TreeBackward(torch.autograd.Function):
             "fused_tree_chain is differentiable once (no second derivative)")
 
     @staticmethod
-    def vmap(info, in_dims, mats, an, sq, tree, gbar, order, scaling):
+    def vmap(info, in_dims, mats, w, res, gbar, order, scaling):
         # kernel 2 takes one problem: one launch per batch entry
-        ops = (mats, an, sq, tree, gbar)
+        ops = (mats, w, res, gbar)
         wbar = torch.stack([
             _TreeBackward.apply(*(_entry(x, d, b) for x, d in zip(ops,
                                                                   in_dims)),
@@ -101,11 +104,12 @@ class _TreeBackward(torch.autograd.Function):
 
 
 class _TreeChain(torch.autograd.Function):
-    """Kernels 1 and 2: the forward returns the residuals beside E (marked
-    non-differentiable), the backward replays them.  A new-style Function
-    with a vmap rule, so that it runs under ``torch.func`` (the batch
-    layer's vmapped backend): kernel 1 takes one problem, so the rule
-    launches it once per batch entry and stacks the results."""
+    """Kernels 1 and 2: the forward returns the residuals (the segment and
+    block products) beside E, marked non-differentiable; the backward
+    replays them with the padded weights.  A new-style Function with a
+    vmap rule, so that it runs under ``torch.func`` (the batch layer's
+    vmapped backend): kernel 1 takes one problem, so the rule launches it
+    once per batch entry and stacks the results."""
 
     @staticmethod
     def forward(mats, weights, order, scaling):
@@ -116,17 +120,17 @@ class _TreeChain(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         mats, weights, order, scaling = inputs
-        _, an, sq, tree = output
-        ctx.mark_non_differentiable(an, sq, tree)
-        ctx.save_for_backward(mats, an, sq, tree)
-        ctx.order, ctx.scaling, ctx.T = order, scaling, weights.shape[-1]
+        _, res = output
+        ctx.mark_non_differentiable(res)
+        ctx.save_for_backward(mats, weights, res)
+        ctx.order, ctx.scaling = order, scaling
 
     @staticmethod
-    def backward(ctx, gbar, _an_bar, _sq_bar, _tree_bar):
-        mats, an, sq, tree = ctx.saved_tensors
-        wbar = _TreeBackward.apply(mats, an, sq, tree, gbar, ctx.order,
-                                   ctx.scaling)
-        return None, wbar[..., :ctx.T], None, None
+    def backward(ctx, gbar, _res_bar):
+        mats, weights, res = ctx.saved_tensors
+        wbar = _TreeBackward.apply(mats, _pad_lanes(weights), res, gbar,
+                                   ctx.order, ctx.scaling)
+        return None, wbar[..., :weights.shape[-1]], None, None
 
     @staticmethod
     def vmap(info, in_dims, mats, weights, order, scaling):
@@ -134,7 +138,7 @@ class _TreeChain(torch.autograd.Function):
                                  _entry(weights, in_dims[1], b), order,
                                  scaling)
                 for b in range(info.batch_size)]
-        return tuple(torch.stack(xs) for xs in zip(*outs)), (0, 0, 0, 0)
+        return tuple(torch.stack(xs) for xs in zip(*outs)), (0, 0)
 
 
 def fused_tree_chain(mats: torch.Tensor, weights: torch.Tensor, order: int,
