@@ -6,17 +6,31 @@ as qoc_tpu's ``Grape`` (and the reference, main_grape/grape.py:19), plus
 card and raises when torch sees none; ``device="cpu"`` runs the plain
 torch versions on the CPU.
 
-Supported: ``method="Adam"`` and ``"EVOLVE"``, exact gradients, and all
-seven penalties (``reg_coeffs``, ``models.costs``).  On a CUDA device an
-Adam run goes through the fused segment kernel (``ops.mega``) whenever
+Methods, with qoc_tpu's names: ``"Adam"``; qoc_tpu's native L-BFGS
+(``"L-BFGS-JAX"``, ``"LBFGS"`` or ``"LBFGS-JAX"``, ``optim.lbfgs``);
+``"BFGS"`` and ``"L-BFGS-B"`` through scipy (``optim.scipy_bridge``);
+``"EVOLVE"`` (one forward).  Any other name raises ``ValueError``.
+Exact and reference-parity gradients (``gradient_mode``), ``remat`` and
+all seven penalties (``reg_coeffs``, ``models.costs``).  On a CUDA device
+an Adam run goes through the fused segment kernel (``ops.mega``) whenever
 ``mega_supported`` holds (``engine="auto"`` or ``"mega"``), else through
 the per-iteration runner over the engine qoc_tpu's ladders pick
 (``ops.propagation``: ``tree``, ``pscan``, ``associative`` or ``scan``;
-each can also be asked for by name).  On the CPU, ``engine="mega"`` runs the
+each can also be asked for by name); the quasi-Newton methods evaluate
+the same per-iteration loss.  On the CPU, ``engine="mega"`` runs the
 segment's plain torch version, and everything else runs the plain
-engines.  The other methods, resume and the IPython dashboard are not
-ported yet (ROADMAP.md) and raise ``NotImplementedError`` (the
-dashboard: ``show_plots`` prints instead).
+engines.
+
+An Adam run that saves writes a checkpoint (``utils.checkpoint``, the
+datasets of qoc_tpu's) at every ``update_step`` boundary, and
+``resume_from=<run file>`` continues it on either Adam route, from a file
+of either package; on ``KeyboardInterrupt`` the run saves its checkpoint
+and wall clock and returns the current iterate.  The IPython dashboard is
+not ported (``show_plots`` prints instead).
+
+``GrapeResult.nfev`` counts loss-and-gradient evaluations: scipy's
+``nfev`` for BFGS / L-BFGS-B (as in qoc_tpu), and the linesearch's probes
+for the native L-BFGS (qoc_tpu leaves it None there).
 """
 
 from __future__ import annotations
@@ -34,8 +48,12 @@ from .models.system import ControlProblem
 from .ops.mega import make_mega_segment_runner, mega_supported
 from .optim.adam import init_adam_state, make_segment_runner
 from .optim.convergence import ConvergenceSettings, History
+from .optim.lbfgs import make_lbfgs_runner
+from .optim.scipy_bridge import run_scipy_optimizer
 from .routing import announce, fused_fallback_reasons
 from .utils import analysis as _analysis
+from .utils.checkpoint import (checkpoint_leaves, load_checkpoint,
+                               save_checkpoint, state_from_leaves)
 
 
 class GrapeResult:
@@ -43,7 +61,7 @@ class GrapeResult:
 
     def __init__(self, uks, Uf, u_base, loss, reg_loss, unitary_scale,
                  iterations, history, file_path, inter_vecs=None, problem=None,
-                 fidelity_f64=None, engine=None):
+                 nfev=None, fidelity_f64=None, engine=None):
         self.uks = uks
         self.Uf = Uf
         self.u_base = u_base
@@ -55,6 +73,9 @@ class GrapeResult:
         self.file_path = file_path
         self.inter_vecs = inter_vecs
         self.problem = problem
+        # loss-and-gradient evaluations of the quasi-Newton methods (each
+        # linesearch probe is one), distinct from ``iterations``
+        self.nfev = nfev
         # float64 recompute of the final fidelity (analysis.fidelity_f64)
         self.fidelity_f64 = fidelity_f64
         self.engine = engine           # the routing line's engine name
@@ -63,9 +84,8 @@ class GrapeResult:
         return iter((self.uks, self.Uf))
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to qoc_tpu_torch yet (see ROADMAP.md)")
+LBFGS_NAMES = ("L-BFGS-JAX", "LBFGS", "LBFGS-JAX")
+SCIPY_NAMES = ("BFGS", "L-BFGS-B")
 
 
 def Grape(
@@ -106,14 +126,10 @@ def Grape(
     device=None,
 ) -> GrapeResult:
     grape_start_time = time.time()
-    del draw, freq_unit, show_plots   # dashboard-only arguments
+    del draw, freq_unit   # dashboard-only arguments
     method_u = method.upper()
-    if method_u not in ("ADAM", "EVOLVE"):
-        raise _not_ported(f"method={method!r}")
-    if resume_from is not None:
-        raise _not_ported("resume_from (utils/checkpoint.py)")
-    if remat:
-        raise _not_ported("remat")
+    if method_u not in ("ADAM", "EVOLVE") + LBFGS_NAMES + SCIPY_NAMES:
+        raise ValueError(f"unknown method {method!r}")
     device = entry_device(device)
 
     file_path = None
@@ -173,10 +189,12 @@ def Grape(
     fwd_engine = "auto" if engine == "mega" else engine
     forward, _ = make_forward(problem, reg_coeffs=reg_coeffs,
                               gradient_mode=gradient_mode,
-                              engine=fwd_engine, lean=False, device=device)
+                              engine=fwd_engine, lean=False, device=device,
+                              remat=remat)
     _, loss_fn = make_forward(problem, reg_coeffs=reg_coeffs,
                               gradient_mode=gradient_mode,
-                              engine=fwd_engine, lean=True, device=device)
+                              engine=fwd_engine, lean=True, device=device,
+                              remat=remat)
 
     def analyse(u_base):
         with torch.no_grad():
@@ -246,6 +264,7 @@ def Grape(
         return min(nxt, conv.max_iterations + 1)
 
     start_time = time.time()
+    nfev = None
 
     if method_u == "EVOLVE":
         resolved = forward.resolved_engine
@@ -256,10 +275,38 @@ def Grape(
             float(out.loss), float(out.reg_loss), float(out.unitary_scale))
         iterations = 0
         save_step(0, loss, reg_loss, 0.0, uscale, u_base, start_time)
+    elif method_u in SCIPY_NAMES:
+        resolved = loss_fn.resolved_engine
+        announce("engine", resolved)
+        print("Starting " + method_u + " Optimization")
+
+        def cb(iteration, loss, reg_loss, g2, uscale, u_base):
+            if iteration % conv.update_step == 0:
+                save_step(iteration, loss, reg_loss, g2, uscale, u_base,
+                          start_time)
+
+        u_base, res = run_scipy_optimizer(
+            loss_fn, problem.u0_base, conv, method=method_u, callback=cb,
+            device=device)
+        print(method_u + " optimization done")
+        out = analyse(u_base)
+        loss, reg_loss = float(out.loss), float(out.reg_loss)
+        uscale = float(out.unitary_scale)
+        # ``nit`` counts optimizer iterations; the reference's per-eval
+        # counter (run_session.py:151-167) counted linesearch probes too,
+        # which stay available as nfev
+        iterations = int(res.get("nit", res.get("nfev", 0)))
+        nfev = int(res.get("nfev", 0))
+        if not show_plots:
+            print(res.message)
+            print("Error = %1.2e" % loss)
+            print("Total time is " + str(time.time() - start_time))
     else:
+        # Adam or the native L-BFGS, in segments up to the update_step grid
+        adam = method_u == "ADAM"
         on_cuda = device.type == "cuda"
         use_mega = (
-            engine in ("auto", "mega")
+            adam and engine in ("auto", "mega")
             and mega_supported(problem, reg_coeffs, gradient_mode)
             and (engine == "mega" or on_cuda)
         )
@@ -281,10 +328,14 @@ def Grape(
             announce("engine", resolved, reasons=(
                 fused_fallback_reasons(problem, reg_coeffs, gradient_mode,
                                        on_accel=on_cuda)
-                if engine == "auto" else None))
-            advance = make_segment_runner(loss_fn, conv)
-            state = init_adam_state(
-                torch.as_tensor(problem.u0_base, device=device), conv)
+                if adam and engine == "auto" else None))
+            u0 = torch.as_tensor(problem.u0_base, device=device)
+            if adam:
+                advance = make_segment_runner(loss_fn, conv)
+                state = init_adam_state(u0, conv)
+            else:
+                init_lbfgs, advance = make_lbfgs_runner(loss_fn, conv)
+                state = init_lbfgs(u0)
 
             def unpad(u):
                 return u.detach().cpu().numpy()
@@ -292,24 +343,52 @@ def Grape(
         def host_u(s):
             return unpad(s.u_base)
 
-        while True:
-            state = advance(state, next_stop(state.iteration))
-            it_now = state.iteration
-            if it_now % conv.update_step == 0 or state.done:
-                save_step(it_now, state.loss, state.reg_loss,
-                          state.grad_squared, state.unitary_scale,
-                          host_u(state), start_time,
-                          lr=conv.learning_rate(it_now))
-            else:
-                evol_boundary_step(it_now, state.loss, state.reg_loss,
-                                   state.unitary_scale, host_u(state),
-                                   start_time)
-            if state.done:
-                break
+        def checkpoint_now(s):
+            save_checkpoint(file_path, checkpoint_leaves(s, problem.steps),
+                            s.iteration)
+
+        if resume_from is not None and adam:
+            leaves, it_r = load_checkpoint(resume_from)
+            state = state_from_leaves(leaves, it_r, problem.steps,
+                                      state.u_base.shape[1], device)
+            print(f"resumed from {resume_from} at iteration {it_r}")
+
+        try:
+            while True:
+                state = advance(state, next_stop(state.iteration))
+                it_now = state.iteration
+                if it_now % conv.update_step == 0 or state.done:
+                    save_step(it_now, state.loss, state.reg_loss,
+                              state.grad_squared, state.unitary_scale,
+                              host_u(state), start_time,
+                              lr=conv.learning_rate(it_now) if adam else None)
+                    if save and adam:
+                        checkpoint_now(state)
+                else:
+                    evol_boundary_step(it_now, state.loss, state.reg_loss,
+                                       state.unitary_scale, host_u(state),
+                                       start_time)
+                if state.done:
+                    break
+        except KeyboardInterrupt:
+            # graceful interrupt of an Adam run (grape.py:130-139): persist
+            # the wall clock and the latest checkpoint, return the current
+            # iterate; the run resumes with resume_from=<file>
+            if not adam:
+                raise
+            if save:
+                from .utils.h5 import H5File
+
+                checkpoint_now(state)
+                with H5File(file_path, "a") as hf:
+                    hf.add("wall_clock_time",
+                           np.array(time.time() - grape_start_time))
+                print("interrupted; data saved at: " + str(file_path))
         u_base = host_u(state)
         loss, reg_loss = state.loss, state.reg_loss
         uscale = state.unitary_scale
         iterations = state.iteration
+        nfev = None if adam else state.evaluations
         out = analyse(u_base)
 
     final_state = out.final_state.cpu().numpy()
@@ -342,5 +421,5 @@ def Grape(
         uks=uks, Uf=Uf, u_base=u_base, loss=loss, reg_loss=reg_loss,
         unitary_scale=uscale, iterations=iterations, history=history,
         file_path=file_path, inter_vecs=inter_vecs, problem=problem,
-        fidelity_f64=fid64, engine=resolved,
+        nfev=nfev, fidelity_f64=fid64, engine=resolved,
     )

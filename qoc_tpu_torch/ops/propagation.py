@@ -19,27 +19,28 @@ associative engine's and the unitary chains' step propagators) goes
 through kernels 7-8 (``ops.fused_expm``) on a CUDA tensor wherever
 ``fused_expm_supported`` admits the shape, and through the plain
 ``taylor_expm`` otherwise, which computes the same function.  qoc_tpu's
-128-lane pad around pscan (a TPU layout trick) and its reference-parity
-gradient are not ported; ``gradient_mode="reference"`` raises
-``NotImplementedError`` (ROADMAP.md, Queue 1).
+128-lane pad around pscan (a TPU layout trick) stays out.
+
+Gradient modes, as in qoc_tpu: ``exact`` differentiates the truncated
+series; ``reference`` replaces each step's derivative with the
+reference's first-order GRAPE gradient (tensorflow_state.py:49-142):
+``step_propagators_ref_grad`` for the unitary chains and
+``matvec_step_ref`` for the state-transfer scan, new-style
+``autograd.Function``s whose vmap rule is generated, so they also run
+under the batch layer's ``torch.func`` backend.  ``remat`` recomputes the
+step propagators (unitary) or the steps (the state-transfer scan) in the
+backward pass with ``torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .expm import taylor_expm, taylor_expm_matvec, weighted_hamiltonians
 from .fused_expm import fused_expm_supported, fused_taylor_expm
 from .tree_chain import fused_tree_chain, tree_chain_supported
-
-
-def _require_exact(gradient_mode: str) -> None:
-    if gradient_mode != "exact":
-        raise NotImplementedError(
-            f"gradient_mode={gradient_mode!r}: the reference-parity "
-            "gradient is not ported to qoc_tpu_torch yet (ROADMAP.md, "
-            "Queue 1); use gradient_mode='exact'")
 
 
 def batched_taylor_expm(A: torch.Tensor, order: int,
@@ -57,6 +58,75 @@ def step_propagators(mats, weights, order: int, scaling: int):
     """All per-step propagators exp(sum_k w[k,t] mats[k]): [K,M,M], [K,T] -> [T,M,M]."""
     return batched_taylor_expm(weighted_hamiltonians(mats, weights), order,
                                scaling)
+
+
+def _zero_drift_row(wbar: torch.Tensor) -> torch.Tensor:
+    """The drift weight gets no gradient (tensorflow_state.py:54)."""
+    return torch.cat([torch.zeros_like(wbar[:1]), wbar[1:]])
+
+
+class _StepPropagatorsRefGrad(torch.autograd.Function):
+    """``qoc_tpu.step_propagators_ref_grad``: the forward is
+    ``step_propagators``; the backward is matexp_op_grad
+    (tensorflow_state.py:49-65), wbar[k, t] = sum_ij Gbar[t] * (mats[k] @
+    P[t]) for k >= 1, zero for the drift row and for ``mats``."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(mats, weights, order, scaling):
+        return step_propagators(mats, weights, order, scaling)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
+
+    @staticmethod
+    def backward(ctx, G):
+        mats, P = ctx.saved_tensors
+        X = torch.einsum("tim,tjm->tij", G, P)
+        wbar = torch.einsum("kij,tij->kt", mats, X)
+        return torch.zeros_like(mats), _zero_drift_row(wbar), None, None
+
+
+def step_propagators_ref_grad(mats, weights, order: int, scaling: int):
+    """All step propagators [T, M, M] with the reference's gradient."""
+    return _StepPropagatorsRefGrad.apply(mats, weights, order, scaling)
+
+
+class _MatvecStepRef(torch.autograd.Function):
+    """``qoc_tpu._matvec_step_ref``: one state-transfer step psi' =
+    exp(A_t) psi (Taylor powers 0..order-1), with matvecexp_op_grad
+    (tensorflow_state.py:100-133) as its backward: wbar[k] = sum(Gbar *
+    (mats[k] @ psi')) for k >= 1, zero for the drift and for ``mats``, and
+    the cotangent evolved back with exp(-A_t) at the same order."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(mats, w_t, psi, order):
+        A = torch.einsum("k,kij->ij", w_t, mats)
+        return taylor_expm_matvec(A, psi, order)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        mats, w_t, _, order = inputs
+        ctx.save_for_backward(mats, w_t, output)
+        ctx.order = order
+
+    @staticmethod
+    def backward(ctx, G):
+        mats, w_t, out = ctx.saved_tensors
+        Hk_out = torch.einsum("kij,jv->kiv", mats, out)
+        wbar = _zero_drift_row(torch.einsum("kiv,iv->k", Hk_out, G))
+        A_neg = torch.einsum("k,kij->ij", -w_t, mats)
+        psibar = taylor_expm_matvec(A_neg, G, ctx.order)
+        return torch.zeros_like(mats), wbar, psibar, None
+
+
+def matvec_step_ref(mats, w_t, psi, order: int):
+    """One state-transfer step with the reference's gradient."""
+    return _MatvecStepRef.apply(mats, w_t, psi, order)
 
 
 # ---------------------------------------------------------------------------
@@ -332,52 +402,86 @@ def evolve_unitary_pscan(mats, weights, U0, psi0, order: int, scaling: int,
 
 def state_transfer_chain(mats, weights, psi0, order: int,
                          gradient_mode: str = "exact", engine: str = "auto",
-                         final_only: bool = False):
+                         final_only: bool = False, remat: bool = False):
     """Evolve stacked state vectors psi0 [M, V] through all steps.
 
     Returns inter_vecs [T+1, M, V], or [1, M, V] (the final state) with
     ``final_only``.  Taylor convention of state transfer: powers
-    0..order-1, no squaring.
+    0..order-1, no squaring.  The tree, associative and pscan engines take
+    exact gradients only; the reference gradient and ``remat`` run the
+    serial scan, as in qoc_tpu.  With ``remat`` the final-only scan keeps
+    one state per chunk of about sqrt(T) steps and recomputes the chunk in
+    the backward pass; otherwise each step is recomputed.
     """
-    _require_exact(gradient_mode)
+    exact = gradient_mode == "exact"
     if engine == "auto":
         engine = resolve_state_engine(mats.shape[-1], weights.shape[-1],
                                       gradient_mode, final_only,
                                       weights.device.type == "cuda")
 
-    if engine == "tree" and final_only:
+    if exact and engine == "tree" and final_only:
         E = fused_tree_chain(mats, weights, order - 1, 0)
         return torch.matmul(E, psi0)[None]
 
-    if engine == "associative":
+    if exact and engine == "associative":
         P = step_propagators(mats, weights, order - 1, 0)
         if final_only:
             return torch.matmul(chain_product_tree(P), psi0)[None]
         vecs = torch.matmul(prefix_products(P), psi0)
         return torch.cat([psi0[None], vecs])
 
-    if engine == "pscan":
+    if exact and engine == "pscan":
         vecs = pscan_chain(mats, weights, psi0, order, 1)
         return vecs[-1][None] if final_only else vecs
 
-    A = weighted_hamiltonians(mats, weights)
+    T = weights.shape[-1]
+    if not exact:
+        def step(psi, t):
+            return matvec_step_ref(mats, weights[:, t], psi, order)
+    elif remat:
+        def step(psi, t):      # the generator formed inside the recompute
+            return taylor_expm_matvec(
+                torch.einsum("k,kij->ij", weights[:, t], mats), psi, order)
+    else:
+        A = weighted_hamiltonians(mats, weights)
+
+        def step(psi, t):
+            return taylor_expm_matvec(A[t], psi, order)
+
+    def run(psi, t0: int, t1: int):
+        for t in range(t0, t1):
+            psi = step(psi, t)
+        return psi
+
+    if final_only:
+        # remat keeps one state per chunk of ~sqrt(T) steps: two levels,
+        # tensorflow_state.py:58's recompute-in-backward generalized
+        chunk = max(int(T ** 0.5), 1) if remat else max(T, 1)
+    else:
+        chunk = 1
     psi = psi0
     vecs = [psi0]
-    for t in range(A.shape[0]):
-        psi = taylor_expm_matvec(A[t], psi, order)
-        if not final_only:
-            vecs.append(psi)
-    if final_only:
-        return psi[None]
-    return torch.stack(vecs)
+    for t0 in range(0, T, chunk):
+        t1 = min(t0 + chunk, T)
+        psi = (checkpoint(run, psi, t0, t1, use_reentrant=False) if remat
+               else run(psi, t0, t1))
+        vecs.append(psi)
+    return psi[None] if final_only else torch.stack(vecs)
 
 
 def evolve_unitary(mats, weights, U0, psi0, order: int, scaling: int,
                    gradient_mode: str = "exact", engine: str = "associative",
-                   use_inter_vecs: bool = True):
-    """Unitary-mode forward: (final_U, inter_vecs or None)."""
-    _require_exact(gradient_mode)
-    P = step_propagators(mats, weights, order, scaling)
+                   use_inter_vecs: bool = True, remat: bool = False):
+    """Unitary-mode forward: (final_U, inter_vecs or None).  The
+    reference gradient replaces the step propagators' derivative;
+    ``remat`` recomputes them in the backward pass (exact mode)."""
+    if gradient_mode == "reference":
+        P = step_propagators_ref_grad(mats, weights, order, scaling)
+    elif remat:
+        P = checkpoint(step_propagators, mats, weights, order, scaling,
+                       use_reentrant=False)
+    else:
+        P = step_propagators(mats, weights, order, scaling)
     if not use_inter_vecs:
         if engine == "scan":
             return chain_scan_novecs(P, U0), None

@@ -112,6 +112,16 @@ def _make_mega_backend(problem, conv, extra_channel_mats, reg_coeffs,
     return init_state, run_segment
 
 
+# torch.utils.checkpoint (the single-problem remat) does not compose with
+# torch.func's transforms
+REMAT_UNDER_FUNC = (
+    "remat in the batch layer: torch.utils.checkpoint does not compose with "
+    "the torch.func.vmap(grad) of the per-seed backends (torch 2.13 raises "
+    "that its transforms \"don't yet support saved tensor hooks\", torch "
+    "2.11 that checkpoint's _NoopSaveInputs has no vmap rule); see "
+    "ROADMAP.md, Queue 1")
+
+
 def make_batched_runner(problem, conv: ConvergenceSettings,
                         reg_coeffs: Optional[dict] = None,
                         gradient_mode: str = "exact", engine: str = "auto",
@@ -128,8 +138,7 @@ def make_batched_runner(problem, conv: ConvergenceSettings,
     if mesh is not None:
         raise NotImplementedError(_MESH)
     if remat:
-        raise NotImplementedError(
-            "remat is not ported to qoc_tpu_torch yet (see ROADMAP.md)")
+        raise NotImplementedError(REMAT_UNDER_FUNC)
     device = entry_device(device)
     on_accel = device.type == "cuda"
     if backend == "auto":

@@ -1,9 +1,8 @@
 """qoc_tpu_torch.Grape end to end on the CPU against qoc_tpu.Grape: the pi
 pulse and the Taylor-[6, 2] gate through the scan engine and through the
 fused segment (plain version on the CPU, interpreted Pallas kernel in
-qoc_tpu), with and without penalties, h5 run files that qoc_tpu's
-verifier accepts, and the parts not ported yet raising instead of
-running."""
+qoc_tpu), with and without penalties, and h5 run files that qoc_tpu's
+verifier accepts."""
 
 import numpy as np
 import pytest
@@ -121,18 +120,6 @@ def test_device_none_needs_the_card(entry, monkeypatch):
         else:
             batched_grape_adam(ControlProblem.build(*args, **kwargs), 2,
                                convergence=CONV)
-
-
-@pytest.mark.parametrize("extra", [
-    {"method": "L-BFGS-B"},
-    {"resume_from": "run.h5"},
-    {"gradient_mode": "reference"},
-], ids=["lbfgsb", "resume", "reference_gradient"])
-def test_unported_parts_raise(extra):
-    args, kwargs = _pi_pulse()
-    with pytest.raises(NotImplementedError):
-        qt.Grape(*args, convergence=CONV, save=False, show_plots=False,
-                 device="cpu", **kwargs, **extra)
 
 
 def _leakage_gate():

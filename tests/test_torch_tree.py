@@ -145,16 +145,3 @@ def test_evolve_unitary_matches(engine, use_inter_vecs):
                                    rtol=1e-5, atol=1e-5)
     else:
         assert iv_got is None and iv_want is None
-
-
-def test_unported_engines_raise():
-    """Every engine is ported; the reference-parity gradient is not, and
-    asking for it raises on each engine instead of running exact
-    gradients."""
-    mats, w, _ = _inputs(2, 4, 8)
-    psi0 = torch.zeros((4, 1))
-    for engine in ("associative", "pscan", "scan", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tprop.state_transfer_chain(torch.tensor(mats), torch.tensor(w),
-                                       psi0, 3, engine=engine,
-                                       gradient_mode="reference")
