@@ -77,16 +77,37 @@ Phases (each prints one line with its numbers; any failed check raises):
      route; 9c the reference gradient of the CNOT in float32 on the card
      against float64 on the CPU, and Grape on the pi pulse in reference
      mode; 9d config 4 at iteration 0 with and without remat (scan) and
-     with representation="complex", with each one's peak device memory.
+     with representation="complex", with each one's peak device memory;
+  10. the command line and config 5: 10a ``python -m qoc_tpu_torch run``
+     (``cli.main``, no ``--device``: the card) on copies of
+     examples/jobs/spin_pi.json, cnot.json and transmon_leakage.json with
+     "save": false (the card's machine has no h5py), routed to kernel 3
+     with the same loss, reg_loss and iteration bits as ``Grape`` called
+     directly, and spin_pi.json with the native L-BFGS on kernels 1-2
+     (tree_backward == nfev); the first run traced with
+     ``utils.profiling.trace`` (the segment kernel must be among the
+     trace's device kernels), ``profiling.time_fn`` and ``memory_stats``
+     on the pi pulse's loss; without a card (CUDA_VISIBLE_DEVICES empty)
+     ``run`` must exit non-zero with ``entry_device``'s message; 10b
+     BASELINE config 5 cut in depth only (examples/torch_05_pod_scale_
+     sweep.py: dim 200, M = 400, T = 200, the 64-point detuning grid,
+     ``backend="xla-cols"``; 512 seeds, 50 iterations): one
+     loss-and-gradient at 512 and 2048 columns timed and traced (the
+     device's busy share, the GEMMs' share), its float32 loss and
+     gradient at iteration 0 against float64 on the card, ms per
+     iteration and peak memory.  Group 10 runs in a process of its own
+     (``run_in_new_process``: the profiler's traces need a young
+     process).  The full config 5 run (4096 seeds, up to 1200 iterations,
+     about 15 minutes) is ``examples/torch_05_pod_scale_sweep.py --full``.
 
 Every kernel's entry in the kernels line carries its bound: the larger of
 its operations over 67 TFLOP/s (float32 outside the tensor cores) and its
 bytes over 3.35 TB/s, at the timed shape.  The second-to-last line is that
 JSON object; the last line is ``{"ok": true, "device": {...}}``.  Without
 a CUDA device the script exits with code 2 and prints no result.
-``--phases 8`` (or ``2-4``, ``5-7``, ``9``, comma-separated) runs phase 1
-and the groups named, and prints only their kernels (phase 9 adds none:
-it drives kernels 1-3 and 7 through new entry points).
+``--phases 8`` (or ``2-4``, ``5-7``, ``9``, ``10``, comma-separated) runs
+phase 1 and the groups named, and prints only their kernels (phases 9 and
+10 add none: they drive kernels 1-3 and 7 through new entry points).
 """
 
 from __future__ import annotations
@@ -1511,6 +1532,10 @@ DRIVER_BAR = 0.9999
 # quasi-Newton runs end 1.4e-6 to 2.7e-6 from float64 at these settings on
 # the CPU (the same tool).
 GAP_BAR = {"spin_pi": 2e-6, "cnot": 1e-6}
+# The ceiling of that bar: twice the largest of those CPU floors (5.2e-6),
+# so a float32 readout that drifts on the card cannot widen its own bar
+# without end.
+GAP_CEILING = 2 * 5.2e-6
 READOUT_SAMPLES = 8
 DRIVER_RUNS = [("spin_pi", "LBFGS"), ("spin_pi", "L-BFGS-B"),
                ("spin_pi", "BFGS"), ("cnot", "LBFGS"), ("cnot", "L-BFGS-B")]
@@ -1587,7 +1612,8 @@ def phase_drivers(dev) -> dict:
     T = 1000, conv_target 1e-5, engine "auto": each routes to the tree kernels, which launch
     once per loss-and-gradient (kernel 1 also once per aux forward of the
     native L-BFGS, one per segment); 1 - loss and the float64 readout's
-    gap meet their bars (GAP_BAR).  Returns the launch counts' sums."""
+    gap meet their bars (GAP_BAR, at most GAP_CEILING).  Returns the
+    launch counts' sums."""
     import qoc_tpu_torch as q
     from qoc_tpu_torch.ops import _cuda
 
@@ -1613,7 +1639,7 @@ def phase_drivers(dev) -> dict:
         # bridge the analysis forward's
         floor = _readout_floor(res.problem, res.u_base,
                                lean=method == "LBFGS", dev=dev)
-        gap_bar = max(GAP_BAR[name], 2.0 * floor)
+        gap_bar = min(max(GAP_BAR[name], 2.0 * floor), GAP_CEILING)
         fields = dict(
             problem=name, method=method, engine=res.engine,
             iterations=res.iterations, evaluations=res.nfev,
@@ -1623,6 +1649,7 @@ def phase_drivers(dev) -> dict:
             qoc_tpu_cpu_one_minus_loss=QOC_TPU_1ML[(name, method)],
             fidelity_f64=res.fidelity_f64,
             fidelity_f64_gap=fid_gap, readout_floor=floor, gap_bar=gap_bar,
+            gap_ceiling=GAP_CEILING,
             wall_s=wall, driver_s=clock.seconds,
             ms_per_evaluation=1e3 * clock.seconds / res.nfev,
             launches=launches)
@@ -1964,6 +1991,336 @@ def phase_remat_complex(dev, job, p4) -> dict:
     return {k: dict(peak=v["peak"], ms=v["ms"]) for k, v in res.items()}
 
 
+# ---- phase 10: the command line and config 5 -----------------------------
+
+# 10a's runs of ``python -m qoc_tpu_torch run``: (job file, changes to it,
+# kernels that must launch, the routing line's engine).  Each job runs
+# from a temporary copy with "save": false (the card's machine has no
+# h5py); the L-BFGS run takes phase 9a's conv_target (DRIVER_CONV_TARGET).
+CLI_RUNS = [
+    ("spin_pi.json", {}, ("mega_segment",), MEGA),
+    ("cnot.json", {}, ("mega_segment",), MEGA),
+    ("transmon_leakage.json", {}, ("mega_segment_costs",), LEAKAGE),
+    ("spin_pi.json", {"method": "LBFGS"}, ("tree_forward", "tree_backward"),
+     "tree"),
+]
+# 10b: config 5 cut in depth only (examples/torch_05_pod_scale_sweep.py
+# at dim 200, T = 200, the 64-point grid), and its iteration-0 check.
+# 50 iterations, not 100: at 0.62 s an iteration (host-bound) 100 took 62
+# s, more than this group's share of the script's time.
+C5_CUT = dict(n_seeds=512, n_grid=64, max_iterations=50, chunk=512)
+C5_CHECK_SEEDS = 8
+# one loss-and-gradient at the cut's and the full run's chunk widths,
+# timed (profiling.time_fn) and traced (profiling.trace)
+C5_PROFILE_COLUMNS = (512, 2048)
+# The card's float32 loss and gradient at iteration 0 against float64 of
+# the same arithmetic on the card: |d reg_loss| <= C5_LOSS_BAR and
+# max|dg| <= C5_GRAD_BAR max|g|.  On the CPU the same inputs give 2.7e-8
+# and 1.06e-6 (tests/test_torch_config5.py holds them 5x inside these
+# bars); the bars leave cuBLAS another order of its float32 sums.
+C5_LOSS_BAR = 1e-6
+C5_GRAD_BAR = 1e-5
+XLA_COLS = "xla-cols (column-batched torch chain) (forced)"
+
+
+def _cli_job(name: str, tmp: str, tag: int, changes: dict) -> str:
+    """A copy of examples/jobs/``name`` in ``tmp`` with "save": false and
+    ``changes``."""
+    with open(os.path.join(HERE, "examples", "jobs", name)) as f:
+        spec = json.load(f)
+    spec.update(save=False, **changes)
+    if changes.get("method") == "LBFGS":
+        spec["convergence"] = dict(spec["convergence"],
+                                   conv_target=DRIVER_CONV_TARGET)
+    path = os.path.join(tmp, f"{tag}_{name}")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    return path
+
+
+def _run_cli(argv):
+    """(exit code, standard output) of ``qoc_tpu_torch.cli.main(argv)``."""
+    from qoc_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def _trace_kernels(path: str):
+    """Names of the device kernels in a Chrome trace of torch.profiler."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+
+
+def phase_cli(dev) -> dict:
+    """10a: ``python -m qoc_tpu_torch run`` (``cli.main``, no --device:
+    the card) on the pi pulse, the CNOT and config 3, routed to kernel 3,
+    and on the pi pulse with the native L-BFGS, routed to kernels 1-2
+    (tree_backward == nfev); each must give the same bits as ``Grape``
+    called directly on the job.  The pi pulse's run is traced with
+    ``utils.profiling.trace`` (the segment kernel must be among the
+    trace's device kernels); ``profiling.time_fn`` and ``memory_stats``
+    read the pi pulse's lean loss; without a card (CUDA_VISIBLE_DEVICES
+    empty) ``run`` exits non-zero with ``entry_device``'s message.
+    Returns the launch counts' sums."""
+    import tempfile
+
+    import torch
+
+    import qoc_tpu_torch as q
+    from qoc_tpu_torch.models.forward import make_forward
+    from qoc_tpu_torch.ops import _cuda
+    from qoc_tpu_torch.utils import profiling
+    from qoc_tpu_torch.utils.jobs import load_job
+
+    totals = dict.fromkeys(_cuda.LAUNCHES, 0)
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_dir = os.path.join(tmp, "trace")
+        for tag, (name, changes, kernels, want) in enumerate(CLI_RUNS):
+            path = _cli_job(name, tmp, tag, changes)
+            traced = tag == 0
+            _cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            with (profiling.trace(trace_dir) if traced
+                  else contextlib.nullcontext()):
+                rc, text = _run_cli(["run", path])
+            wall = time.perf_counter() - t0
+            launches = dict(_cuda.LAUNCHES)
+            for kname, cnt in launches.items():
+                totals[kname] += cnt
+            got = json.loads(text.strip().splitlines()[-1])
+            routed = [ln.split("engine: ", 1)[1] for ln in text.splitlines()
+                      if ln.startswith("[qoc-tpu-torch] engine: ")]
+            with contextlib.redirect_stdout(io.StringIO()):
+                direct = q.Grape(**load_job(path), device=dev)
+            same = (got["loss"] == direct.loss
+                    and got["reg_loss"] == direct.reg_loss
+                    and got["iterations"] == direct.iterations)
+            fields = dict(job=name, changes=changes, rc=rc, engine=routed,
+                          wall_s=wall, result=got, launches=launches,
+                          same_bits_as_grape=same)
+            ok = (rc == 0 and routed == [want] == [direct.engine] and same
+                  and got["file_path"] is None
+                  and np.isfinite(got["loss"])
+                  and all(launches[k] >= 1 for k in kernels))
+            if changes.get("method") == "LBFGS":
+                segments = len(direct.history.iterations)
+                fields.update(evaluations=direct.nfev, aux_forwards=segments)
+                ok = (ok and launches["tree_backward"] == direct.nfev >= 1
+                      and launches["tree_forward"] == direct.nfev + segments
+                      and 1.0 - got["loss"] >= DRIVER_BAR)
+            else:
+                ok = ok and 1.0 - got["loss"] >= 0.99
+            if traced:
+                trace_file = os.path.join(trace_dir, "trace.json")
+                seg = sorted(k for k in _trace_kernels(trace_file)
+                             if "mega_segment" in k)
+                fields.update(trace_bytes=os.path.getsize(trace_file),
+                              trace_segment_kernels=seg)
+                ok = ok and bool(seg)
+            _line("phase10a", **fields)
+            if not ok:
+                failures.append(
+                    f"cli run of {name} {changes}: rc {rc}, routed to "
+                    f"{routed} (want [{want!r}]), launches {launches} (want "
+                    f"{kernels} >= 1), result {got} against Grape's loss "
+                    f"{direct.loss!r}, reg_loss {direct.reg_loss!r}, "
+                    f"iterations {direct.iterations}, fields {fields}")
+            if traced:
+                _, loss_fn = make_forward(direct.problem, lean=True,
+                                          device=dev)
+                u0 = torch.as_tensor(direct.problem.u0_base, device=dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                timing = profiling.time_fn(loss_fn, u0, iters=20, warmup=2)
+                mem = profiling.memory_stats(dev)
+                peak = mem["max_memory_allocated"]
+                _line("phase10a_profiling", time_fn=timing,
+                      max_memory_allocated=peak,
+                      allocated_bytes_all_peak=mem["allocated_bytes.all.peak"])
+                if not (all(np.isfinite(v) and v > 0
+                            for v in timing.values()) and peak > 0):
+                    failures.append(f"profiling: time_fn {timing}, "
+                                    f"max_memory_allocated {peak}")
+        # no card, no --device: run must fail loudly, not fall back
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "qoc_tpu_torch", "run",
+             _cli_job("spin_pi.json", tmp, len(CLI_RUNS), {})],
+            cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+        refused = (r.returncode != 0 and not r.stdout.strip()
+                   and "torch sees no CUDA device" in r.stderr)
+        _line("phase10a_no_card", rc=r.returncode, stderr=r.stderr.strip(),
+              wall_s=time.perf_counter() - t0)
+        if not refused:
+            failures.append(f"run without a card: rc {r.returncode}, "
+                            f"stdout {r.stdout!r}, stderr {r.stderr!r}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return totals
+
+
+def _sweep_example():
+    """examples/torch_05_pod_scale_sweep.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_05_pod_scale_sweep",
+        os.path.join(HERE, "examples", "torch_05_pod_scale_sweep.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _c5_where_time_goes(ex, p, n_op, columns: int, dev) -> dict:
+    """One float32 loss-and-gradient of ``columns`` seeds of config 5 (the
+    per-iteration work of the xla-cols runner): its wall
+    (``profiling.time_fn``, 2 calls after one), and from one traced call
+    the device's busy time, the GEMMs' share of it and the kernel count;
+    the bound is 2 x 400 x 2000 x columns FLOP a product, 2 x 1800
+    products, at 67 TFLOP/s."""
+    import tempfile
+
+    import torch
+
+    from qoc_tpu_torch.parallel.batch import init_seeds
+    from qoc_tpu_torch.parallel.cols_batch import (chain_inputs,
+                                                   make_xla_batched_loss)
+    from qoc_tpu_torch.utils import profiling
+
+    extra, deltas, _ = ex.detuning_channel(p, n_op, columns,
+                                           C5_CUT["n_grid"])
+    loss = make_xla_batched_loss(p, None, extra_channel_mats=extra,
+                                 device=dev)
+    u = init_seeds(p, columns, torch.Generator().manual_seed(0), dev)
+    w = _on(dev, deltas)
+
+    def loss_and_grad():
+        ud = u.detach().requires_grad_(True)
+        reg, _ = loss(ud, w)
+        return torch.autograd.grad(reg.sum(), ud)
+
+    timing = profiling.time_fn(loss_and_grad, iters=2, warmup=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            loss_and_grad()
+        with open(os.path.join(tmp, "trace.json")) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("cat") == "kernel"]
+    busy_us = sum(e["dur"] for e in events)
+    gemm_us = sum(e["dur"] for e in events if "gemm" in e["name"].lower())
+    mats, _, order, scaling = chain_inputs(p, extra, dev)
+    Kp, M = mats.shape[0], mats.shape[1]
+    products = 2 * p.steps * (1 << scaling) * (order - 1)
+    flops = 2.0 * M * Kp * M * columns * products
+    ms = 1e3 * timing["mean_s"]
+    return dict(columns=columns, ms=ms, device_busy_ms=busy_us / 1e3,
+                device_busy_share=busy_us / 1e3 / ms,
+                gemm_share_of_busy=gemm_us / max(busy_us, 1e-9),
+                kernels=len(events), products=products, tflop=flops / 1e12,
+                bound_ms=flops / PEAK_FLOPS * 1e3,
+                achieved_tflops=flops / 1e12 / (ms / 1e3))
+
+
+def phase_config5(dev) -> dict:
+    """10b: BASELINE config 5 cut in depth only (dim 200, M = 400, T =
+    200, the 64-point detuning grid as an extra channel, backend
+    "xla-cols"; 512 seeds in one chunk, 50 iterations): where one
+    iteration's time goes at 512 and 2048 columns (traced first, while
+    the process is young), the float32 loss and gradient at iteration 0
+    of C5_CHECK_SEEDS seeds against float64 of the same arithmetic on the
+    card, then the run with its routing line, ms per iteration,
+    seed-iterations/s, peak memory and best and median loss."""
+    import torch
+
+    from qoc_tpu_torch.parallel.batch import init_seeds
+    from qoc_tpu_torch.parallel.cols_batch import make_xla_batched_loss
+
+    ex = _sweep_example()
+    p, n_op = ex.build_dim200()
+    traced = [_c5_where_time_goes(ex, p, n_op, columns, dev)
+              for columns in C5_PROFILE_COLUMNS]
+    for t in traced:
+        _line("phase10b_where_time_goes", **t)
+    extra, deltas, _ = ex.detuning_channel(p, n_op, C5_CHECK_SEEDS,
+                                           C5_CUT["n_grid"])
+    u = init_seeds(p, C5_CHECK_SEEDS, torch.Generator().manual_seed(0), dev)
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        loss = make_xla_batched_loss(p, None, extra_channel_mats=extra,
+                                     device=dev, dtype=dtype)
+        ud = u.to(dtype).requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reg, _ = loss(ud, _on(dev, deltas))
+        (g,) = torch.autograd.grad(reg.sum(), ud)
+        torch.cuda.synchronize()
+        res[dtype] = (reg.detach().double().cpu(), g.double().cpu(),
+                      1e3 * (time.perf_counter() - t0))
+    (r32, g32, ms32), (r64, g64, ms64) = res[torch.float32], res[torch.float64]
+    loss_gap = float((r32 - r64).abs().max())
+    grad_gap = float((g32 - g64).abs().max() / g64.abs().max())
+    _line("phase10b_iteration0", seeds=C5_CHECK_SEEDS,
+          reg_loss=r32.tolist(), loss_gap=loss_gap, loss_bar=C5_LOSS_BAR,
+          grad_gap_rel=grad_gap, grad_bar=C5_GRAD_BAR,
+          ms_float32=ms32, ms_float64=ms64)
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rep = ex.run_full(device=dev, **C5_CUT)
+    routed = [ln.split("batch backend: ", 1)[1]
+              for ln in buf.getvalue().splitlines()
+              if ln.startswith("[qoc-tpu-torch] batch backend: ")]
+    ms_iter = rep["ms_per_chunk_iteration"][0]
+    _line("phase10b", routed=routed, seeds=rep["n_seeds"],
+          iterations=rep["iterations"], wall_s=rep["wall_s"],
+          ms_per_iteration=ms_iter,
+          seed_iters_per_sec=rep["seed_iters_per_sec"],
+          peak_device_bytes=rep["peak_device_bytes"],
+          best_loss=rep["best_loss"], median_loss=rep["median_loss"],
+          iteration0_median_loss=float(r32.median()))
+    ok = (routed == [XLA_COLS] and loss_gap <= C5_LOSS_BAR
+          and all(t["device_busy_ms"] > 0 for t in traced)
+          and grad_gap <= C5_GRAD_BAR
+          and rep["iterations"] == C5_CUT["max_iterations"] + 1
+          and np.isfinite(rep["best_loss"]) and np.isfinite(ms_iter)
+          and 0.0 <= rep["best_loss"] <= rep["median_loss"]
+          < float(r32.median()))
+    if not ok:
+        raise AssertionError(
+            f"config 5 cut: routed {routed} (want [{XLA_COLS!r}]), "
+            f"iteration-0 |d reg_loss| {loss_gap:.3e} (<= {C5_LOSS_BAR}), "
+            f"max|dg| / max|g| {grad_gap:.3e} (<= {C5_GRAD_BAR}), "
+            f"iterations {rep['iterations']}, best {rep['best_loss']}, "
+            f"median {rep['median_loss']} (< iteration 0's "
+            f"{float(r32.median())}), traced device busy ms "
+            f"{[t['device_busy_ms'] for t in traced]} (> 0)")
+    return rep
+
+
+def run_in_new_process(*calls: str) -> None:
+    """Run ``calls`` (statements over this module, ``chip_smoke``, and
+    ``dev``, the card) in a Python process of their own, which prints to this
+    one's output.  On the card's machine torch.profiler loses device
+    events a few minutes into a process (its GPU timestamps drift out of
+    the profiled window: a traced 512 x 512 product lost its kernels
+    after phases 2-7, the CLI run its segment kernel after phase 8a), so
+    a group that traces runs early in a process of its own."""
+    code = "\n".join(["import sys", "import torch",
+                      f"sys.path.insert(0, {HERE!r})",
+                      "import chip_smoke",
+                      "dev = torch.device('cuda', 0)", *calls])
+    sys.stdout.flush()
+    r = subprocess.run([sys.executable, "-c", code], cwd=HERE, timeout=900)
+    if r.returncode != 0:
+        raise AssertionError(f"{'; '.join(calls)} in a new process exited "
+                             f"with code {r.returncode}")
+
+
 def _times(t: dict, prefix: str, ms_prefix: Optional[str] = None):
     """(ms, plain_ms, bound_ms, bound_by) of a phase's timing entry."""
     ms_prefix = prefix if ms_prefix is None else ms_prefix
@@ -1984,7 +2341,7 @@ def _kernel(name: str, source: str, replaces: str, launches: dict,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-GROUPS = ("2-4", "5-7", "8", "9")
+GROUPS = ("2-4", "5-7", "8", "9", "10")
 
 
 def main() -> int:
@@ -2097,6 +2454,11 @@ def main() -> int:
         phase_reference(dev, problems)
         phase_remat_complex(dev, job, p4)
         _line("phase9", wall_s=time.perf_counter() - t0)
+    if "10" in groups:
+        t0 = time.perf_counter()
+        run_in_new_process("chip_smoke.phase_cli(dev)",
+                           "chip_smoke.phase_config5(dev)")
+        _line("phase10", wall_s=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,11 @@ numpy front end is copied from it, and ``tests/test_torch_*.py`` hold every
 ported module against its qoc_tpu counterpart.  This package never imports
 jax.  Its CUDA kernels (``csrc/``) are built with nvcc at the first launch
 on a CUDA tensor, never at import.
+
+Entry points: ``Grape`` (one problem), ``parallel.batch.batched_grape_adam``
+(many seeds and sweeps) and the command line ``python -m qoc_tpu_torch
+run | verify | plot`` (``cli``), which runs job files on the card unless
+given ``--device cpu``.
 """
 
 from .grape import Grape, GrapeResult

@@ -25,8 +25,10 @@ An Adam run that saves writes a checkpoint (``utils.checkpoint``, the
 datasets of qoc_tpu's) at every ``update_step`` boundary, and
 ``resume_from=<run file>`` continues it on either Adam route, from a file
 of either package; on ``KeyboardInterrupt`` the run saves its checkpoint
-and wall clock and returns the current iterate.  The IPython dashboard is
-not ported (``show_plots`` prints instead).
+and wall clock and returns the current iterate.  With ``show_plots``
+inside IPython each update_step boundary redraws the dashboard
+(``utils.plotting.plot_summary``); a headless run, or one without IPython
+or matplotlib, prints a progress line there instead.
 
 ``GrapeResult.nfev`` counts loss-and-gradient evaluations: scipy's
 ``nfev`` for BFGS / L-BFGS-B (as in qoc_tpu), and the linesearch's probes
@@ -126,7 +128,7 @@ def Grape(
     device=None,
 ) -> GrapeResult:
     grape_start_time = time.time()
-    del draw, freq_unit   # dashboard-only arguments
+    time_unit = {"GHz": "ns", "MHz": "us", "KHz": "ms", "Hz": "s"}[freq_unit]
     method_u = method.upper()
     if method_u not in ("ADAM", "EVOLVE") + LBFGS_NAMES + SCIPY_NAMES:
         raise ValueError(f"unknown method {method!r}")
@@ -233,6 +235,36 @@ def Grape(
             )
         maybe_save_evolution(iteration, u_base)
 
+    def display_dashboard(u_base) -> bool:
+        """Redraw the dashboard (convergence.py:121-222) inside IPython;
+        False, having drawn nothing, anywhere else."""
+        try:
+            import matplotlib.pyplot as plt
+            from IPython import display as ipy_display
+            from IPython import get_ipython
+        except ImportError:
+            return False
+        if get_ipython() is None:
+            return False
+        from .utils import plotting as _plotting
+
+        out = analyse(u_base)
+        fig = _plotting.plot_summary(
+            problem, history,
+            uks=_analysis.uks_from_base(problem, u_base),
+            final_state_c=(
+                None if problem.state_transfer
+                else _analysis.final_state_to_complex(
+                    problem, out.final_state.cpu().numpy())),
+            inter_vecs=(None if out.inter_vecs is None
+                        else out.inter_vecs.cpu().numpy()),
+            reg_coeffs=reg_coeffs, time_unit=time_unit, draw=draw,
+        )
+        ipy_display.display(fig)
+        ipy_display.clear_output(wait=True)
+        plt.close(fig)
+        return True
+
     def save_step(iteration, loss, reg_loss, g2, uscale, u_base, start_time,
                   lr=None):
         history.record(iteration, loss, reg_loss, g2, uscale, lr=lr)
@@ -246,13 +278,12 @@ def Grape(
                 unitary_scale=uscale,
             )
         maybe_save_evolution(iteration, u_base)
-        # show_plots would refresh qoc_tpu's IPython dashboard; the port
-        # has none yet, so both settings print
-        print(
-            "Error = :%1.2e; Runtime: %.1fs; Iterations = %d, "
-            "grads =  %10.3e, unitary_metric = %.5f"
-            % (loss, time.time() - start_time, iteration, g2, uscale)
-        )
+        if not (show_plots and display_dashboard(u_base)):
+            print(
+                "Error = :%1.2e; Runtime: %.1fs; Iterations = %d, "
+                "grads =  %10.3e, unitary_metric = %.5f"
+                % (loss, time.time() - start_time, iteration, g2, uscale)
+            )
 
     def next_stop(it: int) -> int:
         """Next segment boundary: the update_step grid and, when saving,

@@ -4,7 +4,7 @@ qoc_tpu's ``cli.load_config`` and ``examples/jobs/*.json``).
 Matrices and vectors are nested lists (real), ``{"real": [...], "imag":
 [...]}`` (complex) or ``{"npz": "file.npz", "key": "H0"}`` (an entry of an
 .npz archive beside the job file).  Keys that start with ``_`` are
-comments.  The CLI around it is not ported yet (ROADMAP.md).
+comments.  ``cli.load_config`` is this module's ``load_job``.
 """
 
 from __future__ import annotations
