@@ -46,7 +46,7 @@ Phases (each prints one line with its numbers; any failed check raises):
      (each phase's share of the blocks' cycles, ``_cuda.CLOCK_PHASES``);
   7. the batched main path: ``batched_grape_adam`` (``backend="auto"``,
      routed to kernel 6) on the pi pulse at 512 seeds
-     (examples/05_pod_scale_sweep.py's first program, without its mesh),
+     (examples/05_pod_scale_sweep.py's first program),
      the CNOT and config 3 at 64 seeds, and ``backend="pallas"`` (kernels
      4 and 5) on the pi pulse at 256 seeds; launch counts as in phase 4;
   8. the pscan and associative engines on the transmon-cavity job
@@ -91,23 +91,42 @@ Phases (each prints one line with its numbers; any failed check raises):
      ``run`` must exit non-zero with ``entry_device``'s message; 10b
      BASELINE config 5 cut in depth only (examples/torch_05_pod_scale_
      sweep.py: dim 200, M = 400, T = 200, the 64-point detuning grid,
-     ``backend="xla-cols"``; 512 seeds, 50 iterations): one
+     ``backend="xla-cols"``; 512 seeds, 25 iterations): one
      loss-and-gradient at 512 and 2048 columns timed and traced (the
      device's busy share, the GEMMs' share), its float32 loss and
      gradient at iteration 0 against float64 on the card, ms per
      iteration and peak memory.  Group 10 runs in a process of its own
      (``run_in_new_process``: the profiler's traces need a young
      process).  The full config 5 run (4096 seeds, up to 1200 iterations,
-     about 15 minutes) is ``examples/torch_05_pod_scale_sweep.py --full``.
+     about 15 minutes) is ``examples/torch_05_pod_scale_sweep.py --full``;
+  11. the distribution layer and remat in the batch layer, in a process of
+     its own: 11a ``make_mesh()`` with no process group (a world of one on
+     NCCL) and qoc_tpu's run_quick through the sweep example's ``--quick``
+     functions: 512 pi seeds through ``batched_grape_adam(mesh=...)``,
+     routed to kernel 6 (launch counts as in phase 4), with the bits of
+     the same call without the mesh, and the 500-iteration detuning sweep
+     through ``make_mega_batched_runner(mesh=...)``; 11b
+     ``make_shard_map_step`` (64 pi seeds, T = 20, two calls of 40 steps:
+     finite statistics, a falling best loss, ms per call); 11c config 5 at
+     full width (4096 seeds as one shard of 4096 columns, dim 200) through
+     ``make_xla_cols_sharded_runner``, 3 iterations with remat (qoc_tpu's
+     default) and without (losses within 1e-6, u' within 1e-5; ms per
+     iteration, peak memory, seed-iterations/s); 11d two ranks on the one
+     card over gloo (``init_distributed``), each a process of its own, 256
+     of 11a's seeds each on kernel 6: the same result on both ranks and
+     11a's; 11e ``make_batched_runner(remat=True, backend="xla")`` on
+     config 4 (16 seeds, 3 iterations) and one vmapped loss-and-gradient
+     against no remat at phase 9d's bars, with peak memory and wall.
 
 Every kernel's entry in the kernels line carries its bound: the larger of
 its operations over 67 TFLOP/s (float32 outside the tensor cores) and its
 bytes over 3.35 TB/s, at the timed shape.  The second-to-last line is that
 JSON object; the last line is ``{"ok": true, "device": {...}}``.  Without
 a CUDA device the script exits with code 2 and prints no result.
-``--phases 8`` (or ``2-4``, ``5-7``, ``9``, ``10``, comma-separated) runs
-phase 1 and the groups named, and prints only their kernels (phases 9 and
-10 add none: they drive kernels 1-3 and 7 through new entry points).
+``--phases 8`` (or ``2-4``, ``5-7``, ``9``, ``10``, ``11``,
+comma-separated) runs phase 1 and the groups named, and prints only their
+kernels (groups 9-11 add none: they drive kernels 1-3, 6 and 7 through
+new entry points).
 """
 
 from __future__ import annotations
@@ -929,7 +948,8 @@ def phase_mega_batch(dev, problems) -> dict:
         if _cuda.LAUNCHES[instance] != 1:
             raise AssertionError(f"{name}: kernel 6 instance {instance} was "
                                  f"not launched ({_cuda.LAUNCHES})")
-        loss32 = make_xla_batched_loss(p, rc, em, device=dev)
+        # the plain version keeps the trajectory, as kernel 6 does
+        loss32 = make_xla_batched_loss(p, rc, em, remat=False, device=dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         r = mega_batch_segment_reference(loss32, init(u0), n, V=V,
@@ -943,8 +963,8 @@ def phase_mega_batch(dev, problems) -> dict:
         if u_err > 5e-5 or reg_err > 2e-5:
             # the float32 floor of this trajectory: the plain version in
             # float64 (the rule of phases 3 and 3b)
-            loss64 = make_xla_batched_loss(p, rc, em, device=dev,
-                                           dtype=torch.float64)
+            loss64 = make_xla_batched_loss(p, rc, em, remat=False,
+                                           device=dev, dtype=torch.float64)
             s0 = init(u0)
             s64 = s0._replace(**{f: getattr(s0, f).double() for f in (
                 "u_cols", "m_cols", "v_cols", "it_cols", "done_cols")})
@@ -1906,24 +1926,6 @@ def phase_reference(dev, problems) -> dict:
     return dict(grad_rel=rel, iterations=res.iterations, wall_s=wall)
 
 
-def _checkpoint_under_vmap_grad(dev):
-    """Whether torch.utils.checkpoint composes with torch.func.vmap(grad)
-    in this torch (the batch layer's remat needs it): None, or the
-    error torch raises."""
-    import torch
-    from torch.utils.checkpoint import checkpoint
-
-    def loss(w):
-        return torch.sum(checkpoint(torch.sin, w, use_reentrant=False) ** 2)
-
-    try:
-        torch.func.vmap(torch.func.grad(loss))(
-            torch.ones((2, 3), device=dev))
-    except RuntimeError as e:
-        return str(e).splitlines()[0]
-    return None
-
-
 def _peak_loss_and_grad(loss_fn, u0, dev):
     import torch
 
@@ -1967,7 +1969,6 @@ def phase_remat_complex(dev, job, p4) -> dict:
                 float((ra["g"] - rb["g"]).abs().max() / rb["g"].abs().max()))
 
     remat_reg, remat_g = compare("scan_remat", "scan")
-    func_error = _checkpoint_under_vmap_grad(dev)
     cpx_reg, cpx_g = compare("complex", "associative")
     cpx_scan_reg, cpx_scan_g = compare("complex", "scan")
     _line("phase9d", problem="transmon_cavity",
@@ -1978,8 +1979,7 @@ def phase_remat_complex(dev, job, p4) -> dict:
           remat_reg_rel=remat_reg, remat_grad_rel=remat_g,
           complex_reg_rel=cpx_reg, complex_grad_rel=cpx_g,
           complex_vs_scan_reg_rel=cpx_scan_reg,
-          complex_vs_scan_grad_rel=cpx_scan_g,
-          checkpoint_under_vmap_grad=func_error or "composes")
+          complex_vs_scan_grad_rel=cpx_scan_g)
     ok = (remat_reg <= 1e-5 and remat_g <= 1e-4 and cpx_reg <= 1e-5
           and cpx_g <= 1e-4 and res["complex"]["engine"] == "complex")
     if not ok:
@@ -2006,9 +2006,11 @@ CLI_RUNS = [
 ]
 # 10b: config 5 cut in depth only (examples/torch_05_pod_scale_sweep.py
 # at dim 200, T = 200, the 64-point grid), and its iteration-0 check.
-# 50 iterations, not 100: at 0.62 s an iteration (host-bound) 100 took 62
-# s, more than this group's share of the script's time.
-C5_CUT = dict(n_seeds=512, n_grid=64, max_iterations=50, chunk=512)
+# 25 iterations: at 0.62 s an iteration (host-bound) 100 took 62 s, more
+# than this group's share of the script's time, and since the column loss
+# recomputes each step in the backward pass (qoc_tpu's default) an
+# iteration takes about 1.05 s.
+C5_CUT = dict(n_seeds=512, n_grid=64, max_iterations=25, chunk=512)
 C5_CHECK_SEEDS = 8
 # one loss-and-gradient at the cut's and the full run's chunk widths,
 # timed (profiling.time_fn) and traced (profiling.trace)
@@ -2229,7 +2231,7 @@ def _c5_where_time_goes(ex, p, n_op, columns: int, dev) -> dict:
 def phase_config5(dev) -> dict:
     """10b: BASELINE config 5 cut in depth only (dim 200, M = 400, T =
     200, the 64-point detuning grid as an extra channel, backend
-    "xla-cols"; 512 seeds in one chunk, 50 iterations): where one
+    "xla-cols"; 512 seeds in one chunk, 25 iterations): where one
     iteration's time goes at 512 and 2048 columns (traced first, while
     the process is young), the float32 loss and gradient at iteration 0
     of C5_CHECK_SEEDS seeds against float64 of the same arithmetic on the
@@ -2302,6 +2304,353 @@ def phase_config5(dev) -> dict:
     return rep
 
 
+# ---- group 11: the distribution layer and remat in the batch layer ------
+
+# the batched_grape_adam result fields 11a and 11d compare
+RESULT_ARRAYS = ("losses", "reg_losses", "u_base", "converged")
+# 11b: tests/test_distributed.py's pi pulse (T = 20) at 64 seeds
+SHARD_SEEDS = 64
+SHARD_CONV = {"rate": 0.05, "conv_target": 1e-2}
+SHARD_STEPS = 40
+# 11c: config 5 at full width, cut in depth to 3 iterations
+C5_SHARD_SEEDS = 4096
+C5_SHARD_ITERATIONS = 3
+# 11d: two ranks of 256 seeds each must give 11a's one-process result
+# within this (when not bit for bit)
+RANKS_BAR = 1e-6
+# 11e: config 4 on "xla" under torch.func with remat, phase 9d's bars
+REMAT_SEEDS = 16
+REMAT_ITERATIONS = 3
+
+
+def _result_gap(a: dict, b: dict) -> float:
+    """Largest difference between two batched_grape_adam results' arrays
+    (inf when the iterations or converged flags differ)."""
+    if (a["iterations"] != b["iterations"]
+            or not np.array_equal(a["converged"], b["converged"])):
+        return float("inf")
+    return max(float(np.max(np.abs(np.asarray(a[k], np.float64)
+                                   - np.asarray(b[k], np.float64))))
+               for k in RESULT_ARRAYS)
+
+
+def _same_bits(a: dict, b: dict) -> bool:
+    return a["iterations"] == b["iterations"] and all(
+        np.array_equal(a[k], b[k]) for k in RESULT_ARRAYS)
+
+
+def phase_mesh_of_one(dev, ex) -> dict:
+    """11a: ``make_mesh()`` with no process group and no MASTER_ADDR (a
+    world of one on NCCL), then qoc_tpu's run_quick through the example's
+    ``--quick`` functions: 512 pi seeds through
+    ``batched_grape_adam(mesh=...)`` (routed to kernel 6; launch counts
+    reset just before and read just after), which must give the bits of
+    the same call without ``mesh=``, and the detuning sweep through
+    ``make_mega_batched_runner(mesh=...)``, 500 iterations.  Returns the
+    one-process result (11d's reference)."""
+    import torch
+
+    from qoc_tpu_torch.ops import _cuda
+    from qoc_tpu_torch.parallel.batch import batched_grape_adam
+    from qoc_tpu_torch.parallel.mesh import make_mesh
+
+    env = [k for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
+           if k in os.environ]
+    mesh = make_mesh()
+    backend = torch.distributed.get_backend()
+    _cuda.reset_launch_counts()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        res = ex.quick_seeds(mesh, dev)
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    route = printed.getvalue().strip()
+    with contextlib.redirect_stdout(io.StringIO()):
+        plain = batched_grape_adam(ex.pi_pulse(), ex.QUICK_SEEDS,
+                                   convergence=ex.QUICK_CONV, seed=0,
+                                   device=dev)
+    same = _same_bits(res, plain)
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    sweep = ex.quick_sweep(mesh, dev)
+    sweep_wall = time.perf_counter() - t0
+    sweep_launches = dict(_cuda.LAUNCHES)
+    _line("phase11a", backend=backend, ranks=mesh.size(), env_set=env,
+          route=route, seeds=ex.QUICK_SEEDS, iterations=res["iterations"],
+          best_loss=res["best_loss"],
+          converged=int(np.sum(res["converged"])), wall_s=wall,
+          seed_iterations_per_s=ex.QUICK_SEEDS * res["iterations"] / wall,
+          launches=launches, same_bits_as_no_mesh=same,
+          gap_to_no_mesh=_result_gap(res, plain),
+          sweep_iterations=ex.QUICK_SWEEP_ITERATIONS,
+          sweep_best_loss=float(sweep.min()),
+          sweep_worst_loss=float(sweep.max()), sweep_wall_s=sweep_wall,
+          sweep_launches=sweep_launches)
+    ok = (backend == "nccl" and mesh.size() == 1 and not env
+          and route == BATCH_MEGA and launches["mega_batch_segment"] >= 1
+          and same and sweep_launches["mega_batch_segment"] >= 1
+          and sweep.shape == (ex.QUICK_SEEDS,)
+          and bool(np.all(np.isfinite(sweep) & (sweep <= 1))))
+    if not ok:
+        raise AssertionError(
+            f"mesh of one: backend {backend} (want nccl), ranks "
+            f"{mesh.size()}, environment {env} (want none), routed {route!r}"
+            f" (want {BATCH_MEGA!r}), launches {launches}, same bits as "
+            f"without mesh= {same}, sweep launches {sweep_launches}, sweep "
+            f"losses finite and <= 1 (1 - F in float32 may dip below 0): "
+            f"{bool(np.all(np.isfinite(sweep) & (sweep <= 1)))}")
+    return plain
+
+
+def phase_shard_step(dev) -> None:
+    """11b: ``make_shard_map_step`` on the pi pulse (T = 20, 64 seeds) on
+    the mesh of one, two calls of 40 steps: finite statistics and a best
+    loss that falls; ms per call."""
+    import torch
+
+    from qoc_tpu_torch.optim.convergence import ConvergenceSettings
+    from qoc_tpu_torch.parallel.batch import init_seeds
+    from qoc_tpu_torch.parallel.mesh import make_mesh
+    from qoc_tpu_torch.parallel.shard import make_shard_map_step
+    import qoc_tpu_torch as q
+    from qoc_tpu_torch.models.system import ControlProblem
+
+    p = ControlProblem.build(
+        np.zeros((2, 2), dtype=complex), [q.SIGMA_X, q.SIGMA_Y], ["x", "y"],
+        [np.array([0, 1], dtype=complex)], 8.0, 20,
+        [np.array([1, 0], dtype=complex)], state_transfer=True,
+        maxA=[0.8, 0.8], seed=0)
+    init, step = make_shard_map_step(
+        p, ConvergenceSettings.from_dict(SHARD_CONV), make_mesh(),
+        steps_per_call=SHARD_STEPS, device=dev)
+    u, opt = init(init_seeds(p, SHARD_SEEDS, torch.Generator().manual_seed(0)))
+    stats, ms = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        u, opt, st = step(u, opt)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        stats.append([float(v) for v in st])
+    _line("phase11b", seeds=SHARD_SEEDS, steps_per_call=SHARD_STEPS,
+          ms_per_call=ms, stats=[dict(zip(("best_loss", "mean_loss",
+                                           "n_converged", "grad_norm"), s))
+                                 for s in stats])
+    if not (np.all(np.isfinite(stats)) and stats[1][0] < stats[0][0]):
+        raise AssertionError(f"shard step: stats {stats} (finite, and the "
+                             "best loss must fall)")
+
+
+def phase_cols_sharded(dev, ex) -> None:
+    """11c: config 5 at full width (dim 200, M = 400, T = 200, the
+    detuning channel, 4096 seeds as one shard of 4096 columns) through
+    ``make_xla_cols_sharded_runner`` on the mesh of one, 3 iterations,
+    with qoc_tpu's remat (each time step recomputed in the backward pass)
+    and without it (the same runner over ``make_xla_batched_loss(...,
+    remat=False)``): losses within 1e-6 and u' within 1e-5 of each other;
+    ms per iteration, peak device memory and seed-iterations/s of each."""
+    from functools import partial
+    from unittest import mock
+
+    import torch
+
+    from qoc_tpu_torch.optim.convergence import ConvergenceSettings
+    from qoc_tpu_torch.parallel import cols_batch
+    from qoc_tpu_torch.parallel.batch import init_seeds
+    from qoc_tpu_torch.parallel.mesh import make_mesh
+
+    p, n_op = ex.build_dim200()
+    extra, deltas, _ = ex.detuning_channel(p, n_op, C5_SHARD_SEEDS, 64)
+    u0 = init_seeds(p, C5_SHARD_SEEDS, torch.Generator().manual_seed(0),
+                    dev)
+    conv = ConvergenceSettings.from_dict({"rate": 0.06})
+    mesh = make_mesh()
+    runs = {}
+    for remat in (True, False, True):
+        loss = partial(cols_batch.make_xla_batched_loss, remat=remat)
+        with mock.patch.object(cols_batch, "make_xla_batched_loss", loss):
+            run = cols_batch.make_xla_cols_sharded_runner(
+                p, conv, mesh, extra_channel_mats=extra, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        u, fids, regs = run(u0, C5_SHARD_ITERATIONS, extra_weights=deltas)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.setdefault(remat, []).append(dict(
+            u=u, fids=fids, regs=regs,
+            ms_per_iteration=wall * 1e3 / C5_SHARD_ITERATIONS,
+            peak_bytes=torch.cuda.max_memory_allocated() - base,
+            seed_iterations_per_s=C5_SHARD_SEEDS * C5_SHARD_ITERATIONS
+            / wall))
+    on, off = runs[True][-1], runs[False][0]
+    loss_gap = max(float((on[k] - off[k]).abs().max())
+                   for k in ("fids", "regs"))
+    u_gap = float((on["u"] - off["u"]).abs().max())
+    fields = {}
+    for remat, name in ((True, "remat"), (False, "no_remat")):
+        for k in ("ms_per_iteration", "peak_bytes", "seed_iterations_per_s"):
+            fields[f"{name}_{k}"] = [r[k] for r in runs[remat]]
+    _line("phase11c", seeds=C5_SHARD_SEEDS, columns=C5_SHARD_SEEDS,
+          dim=p.state_num, steps=p.steps, iterations=C5_SHARD_ITERATIONS,
+          loss_gap=loss_gap, u_gap=u_gap,
+          median_loss=float(on["fids"].median()), **fields)
+    if not (loss_gap <= 1e-6 and u_gap <= 1e-5
+            and bool(torch.isfinite(on["regs"]).all())
+            and on["u"].shape == (C5_SHARD_SEEDS, p.ops_len, p.steps)):
+        raise AssertionError(
+            f"config 5 through the sharded runner: remat against none "
+            f"losses {loss_gap:.3e} (<= 1e-6), u' {u_gap:.3e} (<= 1e-5)")
+
+
+def phase_two_ranks(dev, want: dict) -> None:
+    """11d: two ranks on the one card (NCCL refuses two ranks on one GPU:
+    gloo, through ``init_distributed``), each its own process started as
+    ``run_in_new_process`` starts one: ``batched_grape_adam(mesh=...)`` on
+    the 512 pi seeds, 256 a rank on kernel 6.  Both ranks must return the
+    same result, equal to 11a's one-process run (bit for bit, else within
+    RANKS_BAR)."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        procs = []
+        for rank in range(2):
+            code = "\n".join([
+                "import sys", "import numpy as np",
+                f"sys.path.insert(0, {HERE!r})", "import chip_smoke",
+                "from qoc_tpu_torch.ops import _cuda",
+                "from qoc_tpu_torch.parallel import mesh as tmesh",
+                "tmesh.init_distributed(backend='gloo', world_size=2, "
+                f"rank={rank}, init_method='file://{tmp}/rendezvous')",
+                "mesh = tmesh.make_mesh()",
+                "ex = chip_smoke._sweep_example()",
+                "_cuda.reset_launch_counts()",
+                f"res = ex.quick_seeds(mesh, {str(dev)!r})",
+                f"np.savez('{tmp}/rank{rank}.npz', "
+                "iterations=res['iterations'], local_seeds=mesh.size(), "
+                "launches=_cuda.LAUNCHES['mega_batch_segment'], "
+                "**{k: res[k] for k in chip_smoke.RESULT_ARRAYS})",
+                "tmesh.dist.destroy_process_group()"])
+            procs.append(subprocess.Popen([sys.executable, "-c", code],
+                                          cwd=HERE))
+        t0 = time.perf_counter()
+        codes = [p.wait(timeout=600) for p in procs]
+        wall = time.perf_counter() - t0
+        if any(codes):
+            raise AssertionError(f"two ranks: exit codes {codes}")
+        got = []
+        for rank in range(2):
+            with np.load(os.path.join(tmp, f"rank{rank}.npz")) as z:
+                got.append({k: z[k] for k in z.files})
+        for g in got:
+            g["iterations"] = int(g["iterations"])
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    agree = _same_bits(got[0], got[1])
+    same = _same_bits(got[0], want)
+    gap = _result_gap(got[0], want)
+    _line("phase11d", backend="gloo", ranks=2, seeds_per_rank=256,
+          wall_s=wall, iterations=got[0]["iterations"],
+          launches_per_rank=[int(g["launches"]) for g in got],
+          ranks_agree=agree, same_bits_as_one_process=same,
+          gap_to_one_process=gap)
+    if not (agree and gap <= RANKS_BAR
+            and all(int(g["launches"]) >= 1 for g in got)):
+        raise AssertionError(
+            f"two ranks: agree {agree}, gap to one process {gap:.3e} (<= "
+            f"{RANKS_BAR}), launches {[int(g['launches']) for g in got]}")
+
+
+def phase_batch_remat(dev, job, p4) -> None:
+    """11e: remat in the batch layer under torch.func on the card:
+    ``make_batched_runner(backend="xla")`` on config 4 (16 seeds, 3
+    iterations) with and without ``remat``, and one vmapped
+    loss-and-gradient at the seeds' start (the runner's ``batch_metrics``):
+    reg_loss rel 1e-5 and max|dg| <= 1e-4 max|g| (phase 9d's bars); peak
+    device memory and wall of each."""
+    import torch
+
+    from qoc_tpu_torch.models.forward import make_forward
+    from qoc_tpu_torch.optim.convergence import ConvergenceSettings
+    from qoc_tpu_torch.parallel.batch import init_seeds, make_batched_runner
+
+    rc = job["reg_coeffs"]
+    conv = ConvergenceSettings.from_dict(job["convergence"])
+    u0 = init_seeds(p4, REMAT_SEEDS, torch.Generator().manual_seed(0), dev)
+    out = {}
+    for remat in (False, True):
+        _, loss_fn = make_forward(p4, reg_coeffs=rc, engine="scan",
+                                  lean=True, remat=remat, device=dev)
+
+        def seed_loss(u):
+            reg, res = loss_fn(u)
+            return reg, res.loss
+
+        metrics = torch.func.vmap(torch.func.grad_and_value(seed_loss,
+                                                            has_aux=True))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        g, (reg, _) = metrics(u0)
+        torch.cuda.synchronize()
+        grad_peak = torch.cuda.max_memory_allocated() - base
+        with contextlib.redirect_stdout(io.StringIO()):
+            init, run = make_batched_runner(p4, conv, reg_coeffs=rc,
+                                            remat=remat, backend="xla",
+                                            device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        s = run(init(u0), REMAT_ITERATIONS, None)
+        torch.cuda.synchronize()
+        out[remat] = dict(g=g, reg=reg, grad_peak=grad_peak, state=s,
+                          wall=time.perf_counter() - t0,
+                          peak=torch.cuda.max_memory_allocated() - base)
+    on, off = out[True], out[False]
+    reg_rel = float(((on["reg"] - off["reg"]).abs() / off["reg"].abs()).max())
+    grad_rel = float((on["g"] - off["g"]).abs().max() / off["g"].abs().max())
+    run_reg_rel = float(((on["state"].reg_loss - off["state"].reg_loss).abs()
+                         / off["state"].reg_loss.abs()).max())
+    _line("phase11e", problem="transmon_cavity", seeds=REMAT_SEEDS,
+          iterations=REMAT_ITERATIONS, reg_loss_rel=reg_rel,
+          grad_rel=grad_rel, run_reg_loss_rel=run_reg_rel,
+          remat_wall_s=on["wall"], no_remat_wall_s=off["wall"],
+          remat_peak_bytes=on["peak"], no_remat_peak_bytes=off["peak"],
+          remat_grad_peak_bytes=on["grad_peak"],
+          no_remat_grad_peak_bytes=off["grad_peak"])
+    if not (reg_rel <= 1e-5 and grad_rel <= 1e-4 and run_reg_rel <= 1e-5
+            and on["state"].iteration == REMAT_ITERATIONS):
+        raise AssertionError(
+            f"batch-layer remat on config 4: reg_loss rel {reg_rel:.3e} "
+            f"(<= 1e-5), max|dg| / max|g| {grad_rel:.3e} (<= 1e-4), after "
+            f"{REMAT_ITERATIONS} iterations reg_loss rel {run_reg_rel:.3e} "
+            "(<= 1e-5)")
+
+
+def phase_distribution(dev) -> None:
+    """Group 11, in a process of its own (its NCCL world of one and the
+    ranks it starts)."""
+    t0 = time.perf_counter()
+    ex = _sweep_example()
+    want = phase_mesh_of_one(dev, ex)
+    phase_shard_step(dev)
+    phase_cols_sharded(dev, ex)
+    phase_two_ranks(dev, want)
+    job, p4 = _config4()
+    phase_batch_remat(dev, job, p4)
+    import torch
+
+    torch.distributed.destroy_process_group()
+    _line("phase11", wall_s=time.perf_counter() - t0)
+
+
 def run_in_new_process(*calls: str) -> None:
     """Run ``calls`` (statements over this module, ``chip_smoke``, and
     ``dev``, the card) in a Python process of their own, which prints to this
@@ -2341,7 +2690,7 @@ def _kernel(name: str, source: str, replaces: str, launches: dict,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-GROUPS = ("2-4", "5-7", "8", "9", "10")
+GROUPS = ("2-4", "5-7", "8", "9", "10", "11")
 
 
 def main() -> int:
@@ -2459,6 +2808,8 @@ def main() -> int:
         run_in_new_process("chip_smoke.phase_cli(dev)",
                            "chip_smoke.phase_config5(dev)")
         _line("phase10", wall_s=time.perf_counter() - t0)
+    if "11" in groups:
+        run_in_new_process("chip_smoke.phase_distribution(dev)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,17 +29,20 @@ reference's first-order GRAPE gradient (tensorflow_state.py:49-142):
 ``autograd.Function``s whose vmap rule is generated, so they also run
 under the batch layer's ``torch.func`` backend.  ``remat`` recomputes the
 step propagators (unitary) or the steps (the state-transfer scan) in the
-backward pass with ``torch.utils.checkpoint``.
+backward pass with ``ops.remat.recompute``, which also runs under
+``torch.func``.
 """
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from .expm import taylor_expm, taylor_expm_matvec, weighted_hamiltonians
 from .fused_expm import fused_expm_supported, fused_taylor_expm
+from .remat import recompute
 from .tree_chain import fused_tree_chain, tree_chain_supported
 
 
@@ -436,21 +439,22 @@ def state_transfer_chain(mats, weights, psi0, order: int,
 
     T = weights.shape[-1]
     if not exact:
-        def step(psi, t):
+        def step(psi, mats, weights, t):
             return matvec_step_ref(mats, weights[:, t], psi, order)
     elif remat:
-        def step(psi, t):      # the generator formed inside the recompute
+        # the generator is formed inside the recompute
+        def step(psi, mats, weights, t):
             return taylor_expm_matvec(
                 torch.einsum("k,kij->ij", weights[:, t], mats), psi, order)
     else:
         A = weighted_hamiltonians(mats, weights)
 
-        def step(psi, t):
+        def step(psi, mats, weights, t):
             return taylor_expm_matvec(A[t], psi, order)
 
-    def run(psi, t0: int, t1: int):
+    def run(psi, mats, weights, t0: int, t1: int):
         for t in range(t0, t1):
-            psi = step(psi, t)
+            psi = step(psi, mats, weights, t)
         return psi
 
     if final_only:
@@ -463,8 +467,8 @@ def state_transfer_chain(mats, weights, psi0, order: int,
     vecs = [psi0]
     for t0 in range(0, T, chunk):
         t1 = min(t0 + chunk, T)
-        psi = (checkpoint(run, psi, t0, t1, use_reentrant=False) if remat
-               else run(psi, t0, t1))
+        psi = (recompute(partial(run, t0=t0, t1=t1), psi, mats, weights)
+               if remat else run(psi, mats, weights, t0, t1))
         vecs.append(psi)
     return psi[None] if final_only else torch.stack(vecs)
 
@@ -478,8 +482,8 @@ def evolve_unitary(mats, weights, U0, psi0, order: int, scaling: int,
     if gradient_mode == "reference":
         P = step_propagators_ref_grad(mats, weights, order, scaling)
     elif remat:
-        P = checkpoint(step_propagators, mats, weights, order, scaling,
-                       use_reentrant=False)
+        P = recompute(partial(step_propagators, order=order,
+                              scaling=scaling), mats, weights)
     else:
         P = step_propagators(mats, weights, order, scaling)
     if not use_inter_vecs:

@@ -1,5 +1,5 @@
 """Seed-batched GRAPE: many seeds and Hamiltonian sweeps per step (port of
-``qoc_tpu.parallel.batch``, without its mesh).
+``qoc_tpu.parallel.batch``).
 
 GRAPE lands in local optima, so users restart from many random pulses;
 this layer optimizes them together.  Each seed keeps its own Adam state
@@ -19,8 +19,16 @@ the batch keeps stepping.  Four backends (``backend=``), as in qoc_tpu:
 ``"auto"`` takes mega, else pallas, else xla-cols on a CUDA device (each
 when its gate holds, with exact gradients and no ``mats_batch``), and
 xla otherwise (qoc_tpu/parallel/batch.py:147-172).  On the CPU the kernel
-backends run their plain torch versions.  ``mesh=`` (sharding the seed
-axis) is not ported yet.
+backends run their plain torch versions.
+
+``mesh=`` (``parallel.mesh``) shards the seed axis over the ranks of a
+process group, one device each, on any backend: every rank draws the same
+global seed batch, keeps its shard and runs it with no collective inside a
+segment.  After each ``update_step`` segment one ``all_reduce`` gives the
+global iteration (the MAX over ranks: a rank whose seeds are all frozen
+stops stepping, and a frozen seed's metrics do not change) and the global
+``all(done)``.  qoc_tpu's while_loop reduces ``any(~done)`` every
+iteration instead; the results are the unsharded run's either way.
 """
 
 from __future__ import annotations
@@ -38,7 +46,8 @@ from ..optim.convergence import ConvergenceSettings
 from ..routing import announce, fused_fallback_reasons
 from .chain_batch import make_pallas_batched_loss, pallas_batch_supported
 from .cols_batch import make_xla_batched_loss, xla_cols_supported
-from .mega_batch import _MESH, batched_mega_supported, make_mega_batched_runner
+from .mega_batch import batched_mega_supported, make_mega_batched_runner
+from .mesh import all_reduce, gather, local_shard
 
 
 class BatchState(NamedTuple):
@@ -49,6 +58,9 @@ class BatchState(NamedTuple):
     reg_loss: torch.Tensor     # [S]
     grad_squared: torch.Tensor  # [S]
     done: torch.Tensor         # [S] bool
+    # under a mesh: the seed fields hold this rank's shard, and all_done
+    # is the global all(done) after a segment
+    all_done: Optional[bool] = None
 
 
 def init_seeds(problem, n_seeds: int, generator: torch.Generator,
@@ -112,14 +124,25 @@ def _make_mega_backend(problem, conv, extra_channel_mats, reg_coeffs,
     return init_state, run_segment
 
 
-# torch.utils.checkpoint (the single-problem remat) does not compose with
-# torch.func's transforms
-REMAT_UNDER_FUNC = (
-    "remat in the batch layer: torch.utils.checkpoint does not compose with "
-    "the torch.func.vmap(grad) of the per-seed backends (torch 2.13 raises "
-    "that its transforms \"don't yet support saved tensor hooks\", torch "
-    "2.11 that checkpoint's _NoopSaveInputs has no vmap rule); see "
-    "ROADMAP.md, Queue 1")
+def _sharded_runner(init_state, run_segment, mesh):
+    """The runner on this rank's shard of the seed axis: ``init_state`` and
+    ``run_segment`` take the global pulses and ``mats_b`` and keep the
+    rank's slice; one ``all_reduce`` per segment sets the global iteration
+    (MAX) and ``all_done``."""
+    def init_sharded(u_bases) -> BatchState:
+        return init_state(local_shard(u_bases, mesh))
+
+    def run_sharded(state: BatchState, stop_at, mats_b) -> BatchState:
+        s = state
+        if not bool(torch.all(s.done)):
+            s = run_segment(s, stop_at, None if mats_b is None
+                            else local_shard(mats_b, mesh))
+        it, live = all_reduce(
+            torch.tensor([s.iteration, int(not bool(torch.all(s.done)))]),
+            mesh, torch.distributed.ReduceOp.MAX).tolist()
+        return s._replace(iteration=it, all_done=not live)
+
+    return init_sharded, run_sharded
 
 
 def make_batched_runner(problem, conv: ConvergenceSettings,
@@ -134,11 +157,10 @@ def make_batched_runner(problem, conv: ConvergenceSettings,
     frozen or the global iteration reaches ``stop_at``.  ``mats_b`` is
     the per-seed generator stack [S, K+1, M, M] with ``sweep_mats``, the
     extra channels' weights [S, E] with ``extra_channel_mats``, else None.
+    ``remat`` recomputes the "xla" backend's propagators in the backward
+    pass; "xla-cols" always does (qoc_tpu's default).  With ``mesh`` both
+    functions take global arrays and the state holds this rank's shard.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
-    if remat:
-        raise NotImplementedError(REMAT_UNDER_FUNC)
     device = entry_device(device)
     on_accel = device.type == "cuda"
     if backend == "auto":
@@ -163,9 +185,23 @@ def make_batched_runner(problem, conv: ConvergenceSettings,
                  describe_backend(backend, device, reg_coeffs) + " (forced)")
 
     if backend == "mega":
-        return _make_mega_backend(problem, conv, extra_channel_mats,
-                                  reg_coeffs, device)
+        init_state, run_segment = _make_mega_backend(
+            problem, conv, extra_channel_mats, reg_coeffs, device)
+    else:
+        init_state, run_segment = _make_per_iteration_backend(
+            problem, conv, reg_coeffs, gradient_mode, engine, remat,
+            sweep_mats, backend, extra_channel_mats, device)
+    if mesh is None:
+        return init_state, run_segment
+    return _sharded_runner(init_state, run_segment, mesh)
 
+
+def _make_per_iteration_backend(problem, conv, reg_coeffs, gradient_mode,
+                                engine, remat, sweep_mats, backend,
+                                extra_channel_mats, device):
+    """(init_state, run_segment) of the "pallas", "xla-cols" and "xla"
+    backends: a loss-and-gradient, the predicates and a masked Adam step
+    per iteration."""
     if backend in ("pallas", "xla-cols"):
         make = (make_pallas_batched_loss if backend == "pallas"
                 else make_xla_batched_loss)
@@ -185,7 +221,7 @@ def make_batched_runner(problem, conv: ConvergenceSettings,
         _, loss_fn = make_forward(
             problem, reg_coeffs=reg_coeffs, gradient_mode=gradient_mode,
             engine="scan" if engine == "auto" else engine, lean=True,
-            device=device)
+            remat=remat, device=device)
 
         def seed_loss(u_base, mats_in):
             reg_loss, out = loss_fn(u_base, mats_in)
@@ -241,6 +277,9 @@ def batched_grape_adam(problem, n_seeds: int,
     pulses, the iteration count, the converged flags and the best seed's
     physical pulse.  ``device=None`` means the CUDA card (and raises
     when torch sees none); ``device="cpu"`` runs the plain versions.
+    With ``mesh`` the seed axis is sharded over the mesh's ranks, and
+    every rank returns the global result (``progress`` sees global
+    arrays too).
 
     Hamiltonian sweeps, two mechanisms:
       * ``mats_batch`` ([S, K+1, 2N, 2N]): per-seed generators, "xla";
@@ -285,31 +324,35 @@ def batched_grape_adam(problem, n_seeds: int,
     else:
         mats_b = None
 
+    def whole(x):
+        """The global array of a per-seed field."""
+        return (x if mesh is None else gather(x, mesh)).cpu().numpy()
+
     state = init_state(u_bases)
     while True:
         stop_at = min(state.iteration + conv.update_step,
                       conv.max_iterations + 1)
         state = run_segment(state, stop_at, mats_b)
         if progress is not None:
-            progress(state.iteration, state.loss.cpu().numpy(),
-                     state.done.cpu().numpy())
-        if (bool(torch.all(state.done))
-                or state.iteration > conv.max_iterations):
+            progress(state.iteration, whole(state.loss), whole(state.done))
+        all_done = (bool(torch.all(state.done)) if mesh is None
+                    else state.all_done)
+        if all_done or state.iteration > conv.max_iterations:
             break
 
-    losses = state.loss.cpu().numpy()
+    losses = whole(state.loss)
     best = int(np.argmin(losses))
-    u_base = state.u_base.cpu().numpy()
+    u_base = whole(state.u_base)
     max_amp = np.asarray(problem.ops_max_amp)[None, :, None]
     uks_all = max_amp * np.sin(u_base)
     return {
         "losses": losses,
-        "reg_losses": state.reg_loss.cpu().numpy(),
+        "reg_losses": whole(state.reg_loss),
         "iterations": int(state.iteration),
         "u_base": u_base,
         "uks": uks_all,
         "best_seed": best,
         "best_uks": uks_all[best],
         "best_loss": float(losses[best]),
-        "converged": state.done.cpu().numpy(),
+        "converged": whole(state.done),
     }

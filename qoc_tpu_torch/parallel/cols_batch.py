@@ -14,8 +14,15 @@ Scope as in qoc_tpu: state transfer or unitary mode at any
 taylor_scaling (2^s pre-scaled applications per step), the coherent
 group fidelity, the forbidden-level and speed_up penalties accumulated
 inside the time loop (no stored trajectory), the pulse penalties through
-``models.costs``, and constant-weight extra channels.  qoc_tpu's
-128-column padding (a TPU layout rule) and ``remat`` are left out.
+``models.costs``, and constant-weight extra channels.  ``remat`` (on by
+default, as in qoc_tpu) recomputes each time step in the backward pass, so
+a loss-and-gradient keeps one ``[M, C]`` state a step instead of every
+Taylor power.  qoc_tpu's 128-column padding (a TPU layout rule) is left
+out.
+
+``make_xla_cols_sharded_runner`` is qoc_tpu's pod path for large-dim
+sweeps (BASELINE config 5): fixed-count Adam segments on each rank's
+shard of the seeds, with no collective until the results are gathered.
 """
 
 from __future__ import annotations
@@ -25,10 +32,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..interop import problem_tensors
+from ..interop import entry_device, problem_tensors
 from ..models.costs import CostContext, total_reg_cost
 from ..models.forward import INTER_VEC_COSTS
 from ..ops.mega import _MEGA_FORB_KEYS, forbidden_static
+from ..ops.remat import recompute
+from ..optim.adam import batched_adam_update, init_batch_adam
+from .mesh import gather, local_shard
 
 
 def xla_cols_supported(problem, reg_coeffs: Optional[dict]) -> bool:
@@ -92,14 +102,16 @@ def column_weights(u_bases, max_amp, extra_weights, V: int):
 
 
 def make_xla_batched_loss(problem, reg_coeffs: Optional[dict] = None,
-                          extra_channel_mats=None, device="cpu",
-                          dtype=torch.float32):
+                          extra_channel_mats=None, remat: bool = True,
+                          device="cpu", dtype=torch.float32):
     """Build ``u_bases [S, Kc, T] -> (reg_losses [S], fid_losses [S])``.
 
     ``extra_channel_mats`` ([E, 2N, 2N] real iso) adds fixed operator
     channels whose constant per-seed weights ``extra_weights [S, E]`` are
-    the loss's second argument.  ``dtype`` float64 gives the float64
-    reference of the same arithmetic.
+    the loss's second argument.  ``remat`` recomputes each time step in
+    the backward pass (``ops.remat.recompute``; the stored powers at
+    [order, M, C] a step would otherwise dominate memory at large M).
+    ``dtype`` float64 gives the float64 reference of the same arithmetic.
     """
     p = problem
     rc = reg_coeffs or {}
@@ -152,8 +164,8 @@ def make_xla_batched_loss(problem, reg_coeffs: Optional[dict] = None,
             tgt_im = tgt_im_1.repeat(1, S)
             su = su0.expand(S)
 
-        for t in range(T):
-            wt = w_t[t]
+        def step(psi, wt):
+            """One time step: the state and this step's penalty terms."""
             for _ in range(reps):
                 acc = psi
                 pn = psi
@@ -162,16 +174,27 @@ def make_xla_batched_loss(problem, reg_coeffs: Optional[dict] = None,
                     pn = torch.matmul(mats_h, stacked) * (csc / n)
                     acc = acc + pn
                 psi = acc
+            out = (psi,)
             if len(forb):
                 phi_s = torch.matmul(f_rows_s, psi)
                 phi_ns = torch.matmul(f_rows_ns, psi)
                 pop = phi_s * phi_s + phi_ns * phi_ns            # [F, C]
-                pen = pen + torch.sum(f_alphas[:, None] * 0.5 * pop * pop,
-                                      dim=0)
+                out += (torch.sum(f_alphas[:, None] * 0.5 * pop * pop,
+                                  dim=0),)
             if has_su:
                 re = torch.sum(psi * tgt_re, dim=0).reshape(S, V).sum(1)
                 im = torch.sum(psi * tgt_im, dim=0).reshape(S, V).sum(1)
-                su = su + (re * re + im * im) * (1.0 / (V * V))
+                out += ((re * re + im * im) * (1.0 / (V * V)),)
+            return out
+
+        for t in range(T):
+            wt = w_t[t]
+            out = recompute(step, psi, wt) if remat else step(psi, wt)
+            psi = out[0]
+            if len(forb):
+                pen = pen + out[1]
+            if has_su:
+                su = su + out[-1]
 
         # coherent group fidelity over each seed's V columns
         # (get_inner_product_2D, tensorflow_state.py:282-300)
@@ -194,3 +217,47 @@ def make_xla_batched_loss(problem, reg_coeffs: Optional[dict] = None,
         return reg_losses, fid_losses
 
     return batched_loss
+
+
+def make_xla_cols_sharded_runner(problem, conv, mesh,
+                                 reg_coeffs: Optional[dict] = None,
+                                 extra_channel_mats=None, device=None):
+    """Fixed-count Adam segments on the column-batched loss, each rank on
+    its shard of the seed axis (qoc_tpu/parallel/xla_batch.py:253-339).
+
+    Returns ``run(u_bases [S, K, T], n, extra_weights [S, E] | None) ->
+    (u' [S, K, T], losses [S], reg_losses [S])``: global arrays in, every
+    rank keeps its slice (``parallel.mesh.local_shard``), runs ``n``
+    complete Adam iterations from a fresh optimizer state with no
+    collective, and returns the gathered global arrays.  The losses are
+    taken at the pre-update iterate of the final iteration (zeros when
+    ``n`` is 0).
+    The loss recomputes each time step in the backward pass (qoc_tpu's
+    default).  qoc_tpu's ``run.lower_segment`` (the XLA lowering of the
+    segment) has nothing to lower in eager torch and is left out.
+    ``device=None`` means the CUDA card.
+    """
+    device = entry_device(device)
+    batched_loss = make_xla_batched_loss(
+        problem, reg_coeffs, extra_channel_mats=extra_channel_mats,
+        device=device)
+    factor = float(np.exp(-1.0 / float(conv.learning_rate_decay)))
+
+    def local(x):
+        return torch.as_tensor(local_shard(x, mesh), dtype=torch.float32,
+                               device=device)
+
+    def run(u_bases, n: int, extra_weights=None):
+        u = local(u_bases)
+        ew = None if extra_channel_mats is None else local(extra_weights)
+        opt = init_batch_adam(u, conv)
+        keep = torch.zeros(u.shape[0], dtype=torch.bool, device=device)
+        fids = regs = torch.zeros(u.shape[0], device=device)
+        for _ in range(int(n)):
+            x = u.detach().requires_grad_(True)
+            regs, fids = batched_loss(x, ew)
+            (g,) = torch.autograd.grad(regs.sum(), x)
+            u, opt = batched_adam_update(u, opt, g, keep, factor)
+        return tuple(gather(y.detach(), mesh) for y in (u, fids, regs))
+
+    return run

@@ -18,6 +18,9 @@ of the summed reg_loss, and the kernel's own predicates, freeze and Adam
 (pallas_mega_batch.py:514-560).  The runner uses it for a problem held on
 the CPU only.
 
+With ``mesh=`` (``parallel.mesh``) every rank runs kernel 6 on its own
+shard of the seeds' columns; nothing crosses ranks inside a segment.
+
 One deliberate difference from qoc_tpu: the reported grad^2 is the seed's
 true norm 0.5 * sum g^2, which qoc_tpu's other backends and ``Grape``
 report; qoc_tpu's fused kernel divides it by V (pallas_mega_batch.py:
@@ -32,17 +35,16 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..interop import problem_tensors
+from ..interop import entry_device, problem_tensors
 from ..ops import _cuda
 from ..ops.mega import (_MEGA_FORB_KEYS, bandpass_angles,
                         forbidden_static, speed_up_c0)
 from ..optim.adam import B1, B2, EPS
 from .cols_batch import chain_inputs, chain_order, make_xla_batched_loss
+from .mesh import gather, local_shard
 
 _BATCH_PULSE_KEYS = ("amplitude", "envelope", "dwdt", "d2wdt2", "bandpass",
                      "band")
-_MESH = ("mesh= (a seed axis sharded over devices) is not ported to "
-         "qoc_tpu_torch yet (ROADMAP.md, Queue 1: distribution)")
 
 
 def batched_mega_supported(problem, reg_coeffs: Optional[dict] = None
@@ -212,23 +214,27 @@ def mega_batch_segment_reference(batched_loss, state: MegaBatchState, n: int,
 def make_mega_batched_runner(problem, conv, extra_channel_mats=None,
                              mesh=None, throughput: bool = False,
                              reg_coeffs: Optional[dict] = None,
-                             device="cpu"):
+                             device=None):
     """(init_state, run_n, read_u): batched Adam segments with per-seed
-    convergence freezing, one kernel launch per segment on a CUDA
-    ``device`` (the plain version on the CPU).
+    convergence freezing, one kernel launch per segment on the CUDA card
+    (``device=None``; ``device="cpu"`` runs the plain version).
 
     ``init_state(u_bases [S, Kc, T])``; ``run_n(state, n, extra_weights
     [S, E], clocks)`` drives n iterations (frozen seeds stay frozen;
     ``clocks``, on the card only, is ``_cuda.mega_batch_segment``'s
     counter buffer);
     ``read_u(state) -> numpy [S, Kc, T]``.  ``throughput=True`` turns the
-    convergence predicates off (fixed-count timing)."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
+    convergence predicates off (fixed-count timing).
+
+    With ``mesh`` (``parallel.mesh.make_mesh``), ``init_state`` and
+    ``run_n`` take the global seed batch and extra weights and keep this
+    rank's shard: the state, its losses included, holds the rank's
+    columns (``parallel.mesh.gather`` gives the global arrays), and ``read_u``
+    returns the global pulses."""
     p = problem
     if not batched_mega_supported(p, reg_coeffs):
         raise ValueError("problem outside the fused batched-optimizer scope")
-    device = torch.device(device)
+    device = entry_device(device)
     T, Kc = p.steps, p.ops_len
     mats, psi0, order, scaling = chain_inputs(p, extra_channel_mats, device)
     E = mats.shape[0] - 1 - Kc
@@ -237,7 +243,9 @@ def make_mega_batched_runner(problem, conv, extra_channel_mats=None,
     tgt, maxamp = tens["target_vectors"], tens["ops_max_amp"]
     costs = batch_costs(p, reg_coeffs, device)
     statics = batch_segment_statics(conv, throughput)
-    batched_loss = (make_xla_batched_loss(p, reg_coeffs, extra_channel_mats)
+    # the plain version stores the trajectory, as the kernel does
+    batched_loss = (make_xla_batched_loss(p, reg_coeffs, extra_channel_mats,
+                                          remat=False)
                     if device.type == "cpu" else None)
     adam = dict(b1=B1, b2=B2, one_minus_b1=1.0 - B1, one_minus_b2=1.0 - B2,
                 eps=EPS, ln_b1=math.log(B1), ln_b2=math.log(B2),
@@ -247,10 +255,18 @@ def make_mega_batched_runner(problem, conv, extra_channel_mats=None,
                 max_iterations=statics["max_iterations"])
     scratch: dict = {}
 
+    def shard(x):
+        return x if mesh is None else local_shard(x, mesh)
+
     def init_state(u_bases) -> MegaBatchState:
+        if mesh is not None and u_bases.shape[0] % mesh.size():
+            raise ValueError(
+                f"column count {u_bases.shape[0] * V} not divisible by mesh "
+                f"size {mesh.size()} x V={V}")
         u = torch.as_tensor(np.asarray(u_bases, dtype=np.float32)
                             if not torch.is_tensor(u_bases) else u_bases,
                             device=device).to(torch.float32)
+        u = shard(u)
         u_cols = torch.repeat_interleave(u.permute(2, 1, 0), V,
                                          dim=2).contiguous()
         C = u_cols.shape[2]
@@ -272,6 +288,8 @@ def make_mega_batched_runner(problem, conv, extra_channel_mats=None,
               clocks=None) -> MegaBatchState:
         if int(n) <= 0:
             return state
+        if E:
+            extra_weights = shard(extra_weights)
         if device.type == "cpu":
             ew = (None if not E else
                   torch.as_tensor(extra_weights, dtype=torch.float32))
@@ -298,6 +316,7 @@ def make_mega_batched_runner(problem, conv, extra_channel_mats=None,
             grad_squared=stats[1, ::V], reg_losses=stats[2, ::V])
 
     def read_u(state: MegaBatchState) -> np.ndarray:
-        return state.u_cols[:, :, ::V].permute(2, 1, 0).cpu().numpy()
+        u = state.u_cols[:, :, ::V].permute(2, 1, 0)
+        return (u if mesh is None else gather(u, mesh)).cpu().numpy()
 
     return init_state, run_n, read_u

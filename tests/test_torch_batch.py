@@ -389,9 +389,3 @@ def test_routing_lines(capsys):
         "[qoc-tpu-torch] batch backend: mega (plain torch batched segment "
         "on cpu, penalties: forbidden, dwdt) (forced)"]
 
-
-def test_mesh_is_not_ported():
-    _, tp = _problems(_pi_args)
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1: distribution"):
-        batched_grape_adam(tp, 2, mesh=object(), device="cpu")

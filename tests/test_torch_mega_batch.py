@@ -167,7 +167,8 @@ def qoc_tpu_segments():
 def _port_runner(name):
     _, tp, rc, conv, u0, em, ew = _case(name)
     init, run, read = make_mega_batched_runner(
-        tp, TConv.from_dict(conv), extra_channel_mats=em, reg_coeffs=rc)
+        tp, TConv.from_dict(conv), extra_channel_mats=em, reg_coeffs=rc,
+        device="cpu")
     return init, run, read, u0, ew, tp.initial_vectors.shape[1]
 
 
@@ -315,7 +316,8 @@ def test_grad_squared_is_the_true_seed_norm():
     u = (np.random.default_rng(0).standard_normal((4, 2, 16)) / 4).astype(
         np.float32)
     conv = _conv()
-    init, run, _ = make_mega_batched_runner(tp, TConv.from_dict(conv))
+    init, run, _ = make_mega_batched_runner(tp, TConv.from_dict(conv),
+                                            device="cpu")
     got = run(init(u), 1)
     ji, jr, _ = j_runner(jp, ConvergenceSettings.from_dict(conv))
     mega = jr(ji(u), 1)
@@ -350,7 +352,8 @@ def test_min_grad_freezes_where_qoc_tpu_xla_does():
         st = xr(st, jnp.asarray(k, dtype=jnp.int32), None)
         newly = np.asarray(st.done) & (frozen_at == n)
         frozen_at[newly] = k - 1
-    init, run, _ = make_mega_batched_runner(tp, TConv.from_dict(conv))
+    init, run, _ = make_mega_batched_runner(tp, TConv.from_dict(conv),
+                                            device="cpu")
     got = run(init(u), n)
     np.testing.assert_array_equal(got.it_cols.numpy()[0, ::2], frozen_at)
     assert (frozen_at < n).all() and len(set(frozen_at.tolist())) == 3
@@ -363,7 +366,7 @@ def test_min_grad_freezes_where_qoc_tpu_xla_does():
 def test_off_the_cpu_never_falls_back(rc):
     """A problem held off the CPU goes to the CUDA launcher, which refuses
     anything but CUDA float32 operands instead of running the plain
-    version; mesh= is not ported and says where it waits."""
+    version."""
     args, kwargs = _leakage_args()
     tp = TorchProblem.build(*args, **kwargs)
     init, run, _ = make_mega_batched_runner(tp, TConv.from_dict(_conv()),
@@ -371,6 +374,13 @@ def test_off_the_cpu_never_falls_back(rc):
     u0 = np.zeros((2, 2, 16), np.float32)
     with pytest.raises(ValueError, match="CUDA"):
         run(init(u0), 3)
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1: distribution"):
-        make_mega_batched_runner(tp, TConv.from_dict(_conv()), mesh=object())
+
+
+def test_device_none_is_the_card(monkeypatch):
+    """make_mega_batched_runner defaults to the card, as batched_grape_adam
+    does, and raises without one instead of running the plain version."""
+    args, kwargs = _leakage_args()
+    tp = TorchProblem.build(*args, **kwargs)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device=None runs on the CUDA"):
+        make_mega_batched_runner(tp, TConv.from_dict(_conv()))

@@ -269,16 +269,6 @@ def test_remat_through_grape_matches_qoc_tpu():
     np.testing.assert_allclose(got.uks, np.asarray(want.uks), atol=1e-4)
 
 
-def test_batch_layer_remat_raises_with_the_reason():
-    """torch.utils.checkpoint does not compose with torch.func.vmap(grad)
-    in this torch, so the batch layer keeps raising, naming why."""
-    args, kw = _state_transfer_case()
-    tp = ControlProblem.build(*args, **kw)
-    with pytest.raises(NotImplementedError, match="saved tensor hooks"):
-        tbatch.make_batched_runner(tp, ConvergenceSettings.from_dict({}),
-                                   remat=True, device="cpu")
-
-
 # ---- the complex representation ----------------------------------------------
 
 def _complex_problems():
