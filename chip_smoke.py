@@ -55,8 +55,13 @@ Phases (each prints one line with its numbers; any failed check raises):
      versions at config 4's generators, at M = 32 (T = 7), at M = 256
      (order 8, s 2) for T = 64 and 512 and at M = 512 (order 6, s 1) for T
      = 64 and 256, with the Horner reference's error and each case's
-     scratch bytes; 8b pscan, associative and scan at config 4's iteration
-     0, and the pscan iteration in parts; 8c ``Grape`` on the job,
+     scratch bytes, and beside each kernel the library call for its
+     function (``torch.linalg.matrix_exp``, and for the VJP the matrix_exp
+     of the 2M block matrix that its backward runs, with the autograd
+     call beside it): its time and its distance from the float64 plain
+     version (not a gate); 8b
+     pscan, associative and scan at config 4's iteration 0, and the pscan
+     iteration in parts; 8c ``Grape`` on the job,
      ``engine="auto"`` (routed to pscan, kernel 7), 2000 of its 5000
      iterations; 8d the same with ``engine="associative"`` (kernels 7 and
      8), 20 iterations; 8e the engines under ``torch.func``: kernel 8's
@@ -116,17 +121,29 @@ Phases (each prints one line with its numbers; any failed check raises):
      of 11a's seeds each on kernel 6: the same result on both ranks and
      11a's; 11e ``make_batched_runner(remat=True, backend="xla")`` on
      config 4 (16 seeds, 3 iterations) and one vmapped loss-and-gradient
-     against no remat at phase 9d's bars, with peak memory and wall.
+     against no remat at phase 9d's bars, with peak memory and wall;
+  12. the measurement path, in a process of its own: 12a every window of
+     bench_torch.py (the counterpart of bench.py) with ``--quick``: a
+     finite, positive rate and, in every timed window, exactly the
+     launches of the route the card's ladders pick (one launch of kernel 3
+     or 6 a window, n of kernels 1-2, 4-5 or 7 for n iterations, none on
+     the dim-200 ``xla-cols`` windows and the CPU baselines); 12b
+     ``optim.adam.make_throughput_runner`` on the pi pulse over the tree
+     kernels, 200 iterations under ``torch.cuda.set_sync_debug_mode
+     ("error")`` (no read from the card while the launches queue), with
+     the bits of ``make_segment_runner`` with convergence off; 12c the
+     converging segment loop (bench.py's wall clock to 1 - 1e-4) ends
+     below 1e-4.  The full run is ``python3 bench_torch.py``.
 
 Every kernel's entry in the kernels line carries its bound: the larger of
 its operations over 67 TFLOP/s (float32 outside the tensor cores) and its
 bytes over 3.35 TB/s, at the timed shape.  The second-to-last line is that
 JSON object; the last line is ``{"ok": true, "device": {...}}``.  Without
 a CUDA device the script exits with code 2 and prints no result.
-``--phases 8`` (or ``2-4``, ``5-7``, ``9``, ``10``, ``11``,
+``--phases 8`` (or ``2-4``, ``5-7``, ``9``, ``10``, ``11``, ``12``,
 comma-separated) runs phase 1 and the groups named, and prints only their
-kernels (groups 9-11 add none: they drive kernels 1-3, 6 and 7 through
-new entry points).
+kernels (groups 9-12 add none: they drive the kernels through new entry
+points).
 """
 
 from __future__ import annotations
@@ -296,6 +313,16 @@ TREE_SHAPES = [(3, 4, 1000, 2, 0), (6, 8, 1000, 3, 0), (3, 12, 777, 6, 2),
                (3, 4, 5000, 2, 0)]
 
 
+def tree_macs(K: int, M: int, T: int, order: int, s: int):
+    """Multiply-adds of kernels 1 and 2 (``tree_bound``'s count):
+    (forward, backward)."""
+    step = order - 1 + s
+    fwd = T * (K * M * M + step * M ** 3) + (T - 1) * M ** 3
+    bwd = (T * (2 * K * M * M + (3 * step + 1) * M ** 3)
+           + 2 * (T - 1) * M ** 3)
+    return fwd, bwd
+
+
 def tree_bound(K: int, M: int, T: int, order: int, s: int, nbytes_fwd: int,
                nbytes_bwd: int) -> dict:
     """The bounds of kernels 1 and 2 from the function's own work, the same
@@ -308,10 +335,7 @@ def tree_bound(K: int, M: int, T: int, order: int, s: int, nbytes_fwd: int,
     products each of the prefixes X_t and of the cotangents nu_t.  Bytes:
     the function's operands, each read or written once (mats, w and E
     forward; mats, w, gbar and wbar backward)."""
-    step = order - 1 + s
-    fwd = T * (K * M * M + step * M ** 3) + (T - 1) * M ** 3
-    bwd = (T * (2 * K * M * M + (3 * step + 1) * M ** 3)
-           + 2 * (T - 1) * M ** 3)
+    fwd, bwd = tree_macs(K, M, T, order, s)
     fb, fby = _bound(2 * fwd, nbytes_fwd)
     bb, bby = _bound(2 * bwd, nbytes_bwd)
     return dict(fwd_bound_ms=fb, fwd_bound_by=fby, bwd_bound_ms=bb,
@@ -492,15 +516,23 @@ def _build_problem(prob):
     return ControlProblem.build(*prob["args"], **kw)
 
 
-def _segment_bound(n: int, p, mats, psi0p, order: int, s: int, k) -> dict:
-    """Bound of ``n`` Adam iterations in one segment launch: per iteration
-    the forward of the V columns, the adjoint sweep and the gradient
-    pairing, each one chain pass (``chain_macs``); the pulse and Adam
-    moments read and written once."""
+def segment_work(n: int, p, mats, psi0p, order: int, s: int,
+                 state_bytes: int):
+    """(flops, bytes) of ``n`` Adam iterations in one segment launch: per
+    iteration the forward of the V columns, the adjoint sweep and the
+    gradient pairing, each one chain pass (``chain_macs``); the operands
+    read once, and the pulse and Adam moments (``state_bytes``) read and
+    written once, a launch."""
     K, M, V = mats.shape[0], mats.shape[1], psi0p.shape[1]
     macs = 3 * n * chain_macs(p.steps, V, K, M, order, s)
-    ms, by = _bound(2 * macs, _nbytes(mats, psi0p)
-                    + 2 * _nbytes(k.u_base, k.m, k.v))
+    return 2 * macs, _nbytes(mats, psi0p) + 2 * state_bytes
+
+
+def _segment_bound(n: int, p, mats, psi0p, order: int, s: int, k) -> dict:
+    """Bound of ``n`` Adam iterations in one segment launch
+    (``segment_work``)."""
+    ms, by = _bound(*segment_work(n, p, mats, psi0p, order, s,
+                                  _nbytes(k.u_base, k.m, k.v)))
     return dict(bound_ms=ms, bound_by=by)
 
 
@@ -1230,6 +1262,30 @@ def phase_expm(dev, p4) -> dict:
                 f"(launch: {c_scratch})")
         worst["expm_forward"] = max(worst["expm_forward"], _abs(E_k, E_r))
         worst["expm_backward"] = max(worst["expm_backward"], _abs(Ab_k, Ab_r))
+        # the library call for each kernel (not a gate): torch's own
+        # matrix_exp, and for the VJP the one matrix_exp that torch's
+        # backward of it runs, of [[A^T, G], [0, A^T]], whose top-right
+        # block is the cotangent; the autograd call, which reruns the
+        # forward too, is timed beside it
+        A_lib = A.detach().clone().requires_grad_(True)
+        At = A.transpose(-1, -2)
+        blk = torch.cat([torch.cat([At, G], -1),
+                         torch.cat([torch.zeros_like(At), At], -1)], -2)
+
+        def lib_fwd():
+            return torch.linalg.matrix_exp(A)
+
+        def lib_bwd():
+            return torch.linalg.matrix_exp(blk)[:, :M, M:]
+
+        def lib_bwd_autograd():
+            return torch.autograd.grad(torch.linalg.matrix_exp(A_lib), A_lib,
+                                       G)[0]
+
+        lib_errs = dict(
+            fwd_library_vs_f64=_abs(lib_fwd(), E_64),
+            bwd_library_vs_f64=_abs(lib_bwd(), Ab_64),
+            bwd_library_autograd_vs_f64=_abs(lib_bwd_autograd(), Ab_64))
         reps = 10 if T * M ** 3 < 5e9 else 3
         fwd_macs, bwd_macs = expm_work(T, M, order, s)
         fb, fby = _bound(2 * fwd_macs, _nbytes(A, E_k))
@@ -1242,6 +1298,9 @@ def phase_expm(dev, p4) -> dict:
                              reps),
             bwd_plain_ms=_timed_ms(lambda: fused_expm_backward_reference(
                 A, G, order, s), reps),
+            fwd_library_ms=_timed_ms(lib_fwd, reps),
+            bwd_library_ms=_timed_ms(lib_bwd, reps),
+            bwd_library_autograd_ms=_timed_ms(lib_bwd_autograd, reps),
             fwd_bound_ms=fb, fwd_bound_by=fby, bwd_bound_ms=bb,
             bwd_bound_by=bby)
         out[name] = t
@@ -1254,7 +1313,8 @@ def phase_expm(dev, p4) -> dict:
               fwd_scratch_bytes=scratch["forward"],
               bwd_scratch_bytes=scratch["backward"],
               fwd_gflop_per_s=2 * fwd_macs / t["fwd_ms"] / 1e6,
-              bwd_gflop_per_s=2 * bwd_macs / t["bwd_ms"] / 1e6, **t)
+              bwd_gflop_per_s=2 * bwd_macs / t["bwd_ms"] / 1e6, **lib_errs,
+              **t)
     return {"worst": worst, "times": out}
 
 
@@ -2050,13 +2110,6 @@ def _run_cli(argv):
     return rc, buf.getvalue()
 
 
-def _trace_kernels(path: str):
-    """Names of the device kernels in a Chrome trace of torch.profiler."""
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    return {e.get("name", "") for e in events if e.get("cat") == "kernel"}
-
-
 def phase_cli(dev) -> dict:
     """10a: ``python -m qoc_tpu_torch run`` (``cli.main``, no --device:
     the card) on the pi pulse, the CNOT and config 3, routed to kernel 3,
@@ -2119,8 +2172,9 @@ def phase_cli(dev) -> dict:
                 ok = ok and 1.0 - got["loss"] >= 0.99
             if traced:
                 trace_file = os.path.join(trace_dir, "trace.json")
-                seg = sorted(k for k in _trace_kernels(trace_file)
-                             if "mega_segment" in k)
+                seg = sorted({e["name"] for e in
+                              profiling.kernel_events(trace_file)
+                              if "mega_segment" in e["name"]})
                 fields.update(trace_bytes=os.path.getsize(trace_file),
                               trace_segment_kernels=seg)
                 ok = ok and bool(seg)
@@ -2210,9 +2264,7 @@ def _c5_where_time_goes(ex, p, n_op, columns: int, dev) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         with profiling.trace(tmp):
             loss_and_grad()
-        with open(os.path.join(tmp, "trace.json")) as f:
-            events = [e for e in json.load(f)["traceEvents"]
-                      if e.get("cat") == "kernel"]
+        events = profiling.kernel_events(os.path.join(tmp, "trace.json"))
     busy_us = sum(e["dur"] for e in events)
     gemm_us = sum(e["dur"] for e in events if "gemm" in e["name"].lower())
     mats, _, order, scaling = chain_inputs(p, extra, dev)
@@ -2651,6 +2703,128 @@ def phase_distribution(dev) -> None:
     _line("phase11", wall_s=time.perf_counter() - t0)
 
 
+def _expected_launches(quick: dict) -> dict:
+    """Each bench_torch window's launches per timed window with
+    ``--quick`` (``bench_torch.QUICK_ITERS``): the kernels of the route
+    the card's ladders pick, and no other."""
+    def every(key, *kernels):
+        return {k: quick[key] for k in kernels}
+
+    return {
+        "pi_pulse_mega": {"mega_segment": 1},
+        "pi_pulse_xla_tree": every("pi_pulse_xla_tree", "tree_forward",
+                                   "tree_backward"),
+        "batched_1024seed": {"mega_batch_segment": 1},
+        "dim64_unitary": every("dim64_unitary", "expm_forward"),
+        "dim200_cavity_128seed": {}, "dim200_cavity_64seed": {},
+        "dim200_speedup_64seed": {},
+        "dim200_single": every("dim200_single", "expm_forward"),
+        "cavity_costs_dim24": every("cavity_costs_dim24", "expm_forward"),
+        "cavity_costs_dim60": every("cavity_costs_dim60", "expm_forward"),
+        "cnot_reg_batched_128seed": {"mega_batch_segment_costs": 1},
+        "dim200_4096seed_grid": {},
+        "leakage_fused": {"mega_segment_costs": 1},
+        "leakage_xla": {}, "cpu_baseline_pi_pulse": {},
+        "cpu_baseline_dim64": {},
+        "batched_1024seed_chain": every("batched_1024seed_chain",
+                                        "state_chain_forward",
+                                        "state_chain_backward"),
+    }
+
+
+MEASURE_ITERATIONS = 200     # 12b
+
+
+def phase_measurement(dev) -> None:
+    """Group 12, in a process of its own: the measurement path.  12a every
+    window of bench_torch.py with ``--quick`` (a finite, positive rate and
+    exactly the launches of its route in each timed window); 12b
+    ``make_throughput_runner`` on the pi pulse over the tree kernels, 200
+    iterations under ``torch.cuda.set_sync_debug_mode("error")`` (no read
+    from the card inside ``run_n``), the same u_base bits as
+    ``make_segment_runner`` with convergence off; 12c the converging
+    segment loop of ``wall_clock_to_fidelity`` ends below 1e-4."""
+    import math
+
+    import torch
+
+    import bench_torch
+    from qoc_tpu_torch.models.forward import make_forward
+    from qoc_tpu_torch.ops import _cuda
+    from qoc_tpu_torch.optim.adam import (init_adam_state,
+                                          make_segment_runner,
+                                          make_throughput_runner)
+
+    t0 = time.perf_counter()
+    report = bench_torch.run(dev, quick=True)
+    want = _expected_launches(bench_torch.QUICK_ITERS)
+    for name, w in report["windows"].items():
+        rates_ok = all(math.isfinite(r) and r > 0 for r in w["runs"])
+        if name == "wall_clock":
+            launches_ok = all(set(x) == {"mega_segment"}
+                              for x in w["launches"])
+        else:
+            launches_ok = all(x == want[name] for x in w["launches"])
+        if not (rates_ok and launches_ok):
+            raise AssertionError(
+                f"12a window {name}: runs {w['runs']} (finite, > 0), "
+                f"launches {w['launches']} (want {want.get(name)})")
+        _line("phase12a", window=name, median=w["median"],
+              spread=w["spread"], launches=w["launches"][0],
+              wall_s=w.get("wall_s"))
+    if set(report["windows"]) != set(bench_torch.CARD_WINDOWS):
+        raise AssertionError(f"12a ran {sorted(report['windows'])}")
+    print(json.dumps(report), flush=True)
+
+    # 12b: the fixed-count runner queues its launches
+    problem = bench_torch._problem()
+    conv = bench_torch._conv(conv_target=-1.0, min_grad=-1.0)
+    _, loss_fn = make_forward(problem, lean=True, engine="auto", device=dev)
+    if loss_fn.resolved_engine != "tree":
+        raise AssertionError(f"12b routed to {loss_fn.resolved_engine}")
+    u0 = torch.as_tensor(np.asarray(problem.u0_base, np.float32),
+                         device=dev)
+    run_n = make_throughput_runner(loss_fn, conv)
+    run_n(init_adam_state(u0, conv), 2)             # warm
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t1 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fast = run_n(init_adam_state(u0, conv), MEASURE_ITERATIONS)
+        queued_s = time.perf_counter() - t1
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    launches = dict(_cuda.LAUNCHES)
+    slow = make_segment_runner(loss_fn, conv)(init_adam_state(u0, conv),
+                                              MEASURE_ITERATIONS)
+    same = (torch.equal(fast.u_base, slow.u_base)
+            and torch.equal(fast.m, slow.m) and torch.equal(fast.v, slow.v)
+            and fast.lr == slow.lr
+            and fast.iteration == slow.iteration == MEASURE_ITERATIONS)
+    n = MEASURE_ITERATIONS
+    if not (same and launches["tree_forward"] == n
+            and launches["tree_backward"] == n):
+        raise AssertionError(
+            f"12b: throughput runner vs segment runner same bits {same}, "
+            f"launches {launches} (want {n} of each tree kernel)")
+    _line("phase12b", iterations=n, same_bits=same, queued_s=queued_s,
+          run_s=run_s, iters_per_s=n / run_s,
+          tree_forward=launches["tree_forward"],
+          tree_backward=launches["tree_backward"])
+
+    # 12c: wall clock to 1 - 1e-4 on kernel 3
+    if not report["final_loss"] < 1e-4:
+        raise AssertionError(f"12c: the segment loop ended at loss "
+                             f"{report['final_loss']} (< 1e-4)")
+    _line("phase12c", wall_s=report["wall_clock_to_1e-4_s"],
+          final_loss=report["final_loss"],
+          iterations=report["iterations_to_target"])
+    _line("phase12", wall_s=time.perf_counter() - t0)
+
+
 def run_in_new_process(*calls: str) -> None:
     """Run ``calls`` (statements over this module, ``chip_smoke``, and
     ``dev``, the card) in a Python process of their own, which prints to this
@@ -2679,18 +2853,21 @@ def _times(t: dict, prefix: str, ms_prefix: Optional[str] = None):
 
 def _kernel(name: str, source: str, replaces: str, launches: dict,
             max_abs_err: float, ms: float, plain_ms: float, bound_ms: float,
-            bound_by: str) -> dict:
-    """One entry of the kernels line.  No single PyTorch call computes any
-    of these functions (a truncated Taylor series and its chain products,
-    Adam segments), so ``library_ms`` is null throughout."""
+            bound_by: str, library_ms: Optional[float] = None) -> dict:
+    """One entry of the kernels line.  ``library_ms``: the time of the one
+    PyTorch call that computes the kernel's function, where there is one:
+    ``torch.linalg.matrix_exp`` for kernel 7, and for kernel 8's VJP the
+    ``matrix_exp`` of the 2M block matrix that its backward runs (phase
+    8a).  No single PyTorch call computes the others (chain
+    products of truncated Taylor series, Adam segments): null."""
     return dict(name=name, route="cuda",
                 source="qoc_tpu_torch/csrc/" + source,
                 replaces="qoc_tpu/" + replaces, launches=launches[name],
                 max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
-GROUPS = ("2-4", "5-7", "8", "9", "10", "11")
+GROUPS = ("2-4", "5-7", "8", "9", "10", "11", "12")
 
 
 def main() -> int:
@@ -2788,10 +2965,10 @@ def main() -> int:
         kernels += [
             _kernel("expm_forward", "expm.cu", "ops/pallas_expm.py:147",
                     expm_launches, expm["worst"]["expm_forward"],
-                    *_times(c4, "fwd_")),
+                    *_times(c4, "fwd_"), library_ms=c4["fwd_library_ms"]),
             _kernel("expm_backward", "expm.cu", "ops/pallas_expm.py:147",
                     expm_launches, expm["worst"]["expm_backward"],
-                    *_times(c4, "bwd_")),
+                    *_times(c4, "bwd_"), library_ms=c4["bwd_library_ms"]),
         ]
     if "9" in groups:
         t0 = time.perf_counter()
@@ -2810,6 +2987,8 @@ def main() -> int:
         _line("phase10", wall_s=time.perf_counter() - t0)
     if "11" in groups:
         run_in_new_process("chip_smoke.phase_distribution(dev)")
+    if "12" in groups:
+        run_in_new_process("chip_smoke.phase_measurement(dev)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

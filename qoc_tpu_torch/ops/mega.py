@@ -37,7 +37,7 @@ import torch
 
 from ..interop import adam_state_from_numpy, problem_tensors
 from ..models.costs import CostContext, total_reg_cost
-from ..optim.adam import B1, B2, EPS, AdamState
+from ..optim.adam import B1, B2, EPS, AdamState, decay_factor
 from . import _cuda
 from .expm import taylor_expm, weighted_hamiltonians
 from .tree_chain import next_pow2, tree_chain_reference, tree_chain_supported
@@ -360,7 +360,7 @@ def segment_statics(problem, conv, throughput: bool = False) -> dict:
         max_iterations = float(conv.max_iterations)
     return dict(
         N=p.state_num, T=p.steps, unitary_mode=not p.state_transfer,
-        rate_factor=float(np.exp(-1.0 / float(conv.learning_rate_decay))),
+        rate_factor=decay_factor(conv),
         conv_target=conv_target, min_grad=min_grad,
         max_iterations=max_iterations)
 

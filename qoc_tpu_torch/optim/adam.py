@@ -9,7 +9,9 @@ them, and on convergence the update is skipped and the iterate frozen.
 Adam is TF1's (beta1 0.9, beta2 0.999, eps 1e-8, bias-corrected moments);
 the learning rate ``rate * exp(-iter / decay)`` is carried as state and
 multiplied by exp(-1/decay) after every applied step.  The fused segment
-kernel (``ops.mega``) shares this state type.
+kernel (``ops.mega``) shares this state type.  ``make_throughput_runner``
+is the fixed-count loop of the measurement programs: the same Adam with
+no convergence test and no read from the device.
 
 ``batched_adam_update`` is the same Adam for a population of seeds (the
 batch layer's per-iteration backends): qoc_tpu vmaps
@@ -97,18 +99,49 @@ def batched_adam_update(u: torch.Tensor, state: BatchAdamState,
                 lr=torch.where(frozen, state.lr, state.lr * factor)))
 
 
+def _adam_step(s: AdamState, g: torch.Tensor, factor) -> dict:
+    """TF1 Adam on ``s`` with gradient ``g``: the fields of the state after
+    one applied step (u_base, m, v, lr times ``factor``, iteration + 1).
+    Pure device arithmetic: nothing is read back to the host."""
+    count = s.iteration + 1
+    m = B1 * s.m + (1.0 - B1) * g
+    v = B2 * s.v + (1.0 - B2) * (g * g)
+    m_hat = m / (1.0 - B1 ** count)
+    v_hat = v / (1.0 - B2 ** count)
+    u_new = s.u_base - s.lr * (m_hat / (torch.sqrt(v_hat) + EPS))
+    return dict(u_base=u_new.detach(), m=m, v=v,
+                lr=float(np.float32(s.lr) * factor), iteration=count)
+
+
+def _value_and_grad(loss_fn: Callable, u_base: torch.Tensor):
+    u = u_base.detach().requires_grad_(True)
+    reg_loss, out = loss_fn(u)
+    (g,) = torch.autograd.grad(reg_loss, u)
+    return reg_loss, out, g
+
+
+def decay_factor(conv: ConvergenceSettings) -> float:
+    """exp(-1/decay): the learning rate's factor after each applied
+    step."""
+    return float(np.exp(-1.0 / float(conv.learning_rate_decay)))
+
+
+def _decay_factor(conv: ConvergenceSettings):
+    """``decay_factor`` in float32, as the single-problem runners carry
+    the learning rate."""
+    return np.float32(decay_factor(conv))
+
+
 def make_segment_runner(loss_fn: Callable, conv: ConvergenceSettings):
     """``run_segment(state, stop_at)``: iterate until converged or
     ``state.iteration == stop_at``.  ``loss_fn(u_base) -> (reg_loss,
     ForwardOutput)``."""
-    factor = np.float32(np.exp(-1.0 / float(conv.learning_rate_decay)))
+    factor = _decay_factor(conv)
 
     def run_segment(state: AdamState, stop_at: int) -> AdamState:
         s = state
         while not s.done and s.iteration < stop_at:
-            u = s.u_base.detach().requires_grad_(True)
-            reg_loss, out = loss_fn(u)
-            (g,) = torch.autograd.grad(reg_loss, u)
+            reg_loss, out, g = _value_and_grad(loss_fn, s.u_base)
             g2 = float(0.5 * torch.sum(g * g))
             loss = float(out.loss.detach())
             converged = (loss < conv.conv_target or g2 < conv.min_grad
@@ -119,16 +152,27 @@ def make_segment_runner(loss_fn: Callable, conv: ConvergenceSettings):
             if converged:
                 s = s._replace(done=True, **metrics)
                 break
-            count = s.iteration + 1
-            m = B1 * s.m + (1.0 - B1) * g
-            v = B2 * s.v + (1.0 - B2) * (g * g)
-            m_hat = m / (1.0 - B1 ** count)
-            v_hat = v / (1.0 - B2 ** count)
-            u_new = s.u_base - s.lr * (m_hat / (torch.sqrt(v_hat) + EPS))
-            s = s._replace(
-                u_base=u_new.detach(), m=m, v=v,
-                lr=float(np.float32(s.lr) * factor), iteration=count,
-                **metrics)
+            s = s._replace(**_adam_step(s, g, factor), **metrics)
         return s
 
     return run_segment
+
+
+def make_throughput_runner(loss_fn: Callable, conv: ConvergenceSettings):
+    """``run_n(state, n)``: exactly ``n`` iterations of value-and-grad plus
+    Adam, for timing (qoc_tpu's ``make_throughput_runner``, a fixed-count
+    ``fori_loop``).  No convergence test and no read from the device, so
+    the launches of all ``n`` iterations queue; the state's metrics
+    (loss, reg_loss, grad_squared, unitary_scale, done) are left as they
+    were.  The same Adam arithmetic as ``make_segment_runner``, so both
+    give the same pulses where the segment runner does not converge."""
+    factor = _decay_factor(conv)
+
+    def run_n(state: AdamState, n: int) -> AdamState:
+        s = state
+        for _ in range(int(n)):
+            _, _, g = _value_and_grad(loss_fn, s.u_base)
+            s = s._replace(**_adam_step(s, g, factor))
+        return s
+
+    return run_n

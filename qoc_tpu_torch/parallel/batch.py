@@ -41,7 +41,8 @@ import torch
 from ..interop import entry_device
 from ..models.costs import cost_names, validate_reg_coeffs
 from ..models.forward import make_forward
-from ..optim.adam import BatchAdamState, batched_adam_update, init_batch_adam
+from ..optim.adam import (BatchAdamState, batched_adam_update, decay_factor,
+                          init_batch_adam)
 from ..optim.convergence import ConvergenceSettings
 from ..routing import announce, fused_fallback_reasons
 from .chain_batch import make_pallas_batched_loss, pallas_batch_supported
@@ -235,7 +236,7 @@ def _make_per_iteration_backend(problem, conv, reg_coeffs, gradient_mode,
         batch_metrics = torch.func.vmap(
             seed_metrics, in_dims=(0, 0 if sweep_mats else None))
 
-    factor = float(np.exp(-1.0 / float(conv.learning_rate_decay)))
+    factor = decay_factor(conv)
 
     def init_state(u_bases) -> BatchState:
         u = torch.as_tensor(u_bases, dtype=torch.float32, device=device)

@@ -37,7 +37,8 @@ from ..models.costs import CostContext, total_reg_cost
 from ..models.forward import INTER_VEC_COSTS
 from ..ops.mega import _MEGA_FORB_KEYS, forbidden_static
 from ..ops.remat import recompute
-from ..optim.adam import batched_adam_update, init_batch_adam
+from ..optim.adam import (batched_adam_update, decay_factor,
+                          init_batch_adam)
 from .mesh import gather, local_shard
 
 
@@ -241,7 +242,7 @@ def make_xla_cols_sharded_runner(problem, conv, mesh,
     batched_loss = make_xla_batched_loss(
         problem, reg_coeffs, extra_channel_mats=extra_channel_mats,
         device=device)
-    factor = float(np.exp(-1.0 / float(conv.learning_rate_decay)))
+    factor = decay_factor(conv)
 
     def local(x):
         return torch.as_tensor(local_shard(x, mesh), dtype=torch.float32,

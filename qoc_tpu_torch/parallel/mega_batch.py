@@ -39,7 +39,7 @@ from ..interop import entry_device, problem_tensors
 from ..ops import _cuda
 from ..ops.mega import (_MEGA_FORB_KEYS, bandpass_angles,
                         forbidden_static, speed_up_c0)
-from ..optim.adam import B1, B2, EPS
+from ..optim.adam import B1, B2, EPS, decay_factor
 from .cols_batch import chain_inputs, chain_order, make_xla_batched_loss
 from .mesh import gather, local_shard
 
@@ -158,7 +158,7 @@ def batch_segment_statics(conv, throughput: bool = False) -> dict:
         min_grad = float(conv.min_grad)
         max_iterations = float(conv.max_iterations)
     return dict(rate=float(conv.rate),
-                factor=float(np.exp(-1.0 / float(conv.learning_rate_decay))),
+                factor=decay_factor(conv),
                 conv_target=conv_target, min_grad=min_grad,
                 max_iterations=max_iterations)
 

@@ -14,13 +14,13 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..interop import entry_device
 from ..models.forward import make_forward
-from ..optim.adam import batched_adam_update, init_batch_adam
+from ..optim.adam import (batched_adam_update, decay_factor,
+                          init_batch_adam)
 from ..optim.convergence import ConvergenceSettings
 from .mesh import all_reduce, local_shard
 
@@ -50,7 +50,7 @@ def make_shard_map_step(problem, conv: ConvergenceSettings, mesh,
     device = entry_device(device)
     _, loss_fn = make_forward(problem, reg_coeffs=reg_coeffs, engine=engine,
                               lean=True, device=device)
-    factor = float(np.exp(-1.0 / float(conv.learning_rate_decay)))
+    factor = decay_factor(conv)
 
     def seed_loss(u):
         reg_loss, out = loss_fn(u)

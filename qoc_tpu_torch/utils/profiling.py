@@ -5,12 +5,14 @@ The same three names and return shapes: ``trace`` captures a
 ``torch.profiler`` trace of a region into a directory (a Chrome trace,
 readable in Perfetto or ``chrome://tracing``), ``time_fn`` times a
 callable with the card synchronised, and ``memory_stats`` reads the
-device allocator's statistics.
+device allocator's statistics.  ``kernel_events`` reads the device
+kernels back from a trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 from typing import Callable, Optional
@@ -34,6 +36,15 @@ def trace(log_dir: str):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def kernel_events(trace_path: str) -> list:
+    """The device kernels of a Chrome trace written by ``trace``: its
+    events of category "kernel", each with its ``name`` and its ``dur``
+    in microseconds."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e for e in events if e.get("cat") == "kernel"]
 
 
 def _sync(out) -> None:

@@ -80,7 +80,18 @@ def verify_run(datafile: str, atol: float = 1e-4, oracle: str = "scipy"):
     (qutip_verification.py:82-86).
     """
     gate_time, steps, H0, Hops, init_vecs, uks, inter_vecs = _load_run(datafile)
+    return verify_states(H0, Hops, uks, gate_time, steps, init_vecs,
+                         inter_vecs, atol=atol, oracle=oracle)
 
+
+def verify_states(H0, Hops, uks, gate_time, steps, init_vecs, inter_vecs,
+                  atol: float = 1e-4, oracle: str = "scipy"):
+    """``verify_run``'s comparison on arrays: the run's pulses ``uks`` [K,
+    T], its initial vectors ``init_vecs`` [V, N] and intermediate states
+    ``inter_vecs`` [V, N, T+1] (complex, the run file's
+    ``inter_vecs_raw_*`` layout) against the oracle's re-simulation.  A
+    run that was not saved (``Grape(save=False)``) is checked from its
+    ``GrapeResult`` this way."""
     max_abs_diff_list, all_close_list = [], []
     for vid in range(len(init_vecs)):
         psi0 = init_vecs[vid]

@@ -41,6 +41,18 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert any(e.key == "aten::mm" for e in prof.key_averages())
 
 
+def test_kernel_events_reads_the_device_kernels(tmp_path):
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": [
+        {"cat": "kernel", "name": "mega_segment", "dur": 12.5},
+        {"cat": "cpu_op", "name": "aten::mm", "dur": 3.0},
+        {"cat": "kernel", "name": "gemm", "dur": 1.0},
+        {"name": "no category"}]}))
+    got = profiling.kernel_events(str(path))
+    assert [(e["name"], e["dur"]) for e in got] == [("mega_segment", 12.5),
+                                                      ("gemm", 1.0)]
+
+
 def test_memory_stats_none_off_the_card(monkeypatch):
     assert profiling.memory_stats("cpu") is None
     assert profiling.memory_stats(torch.device("cpu")) is None
