@@ -64,6 +64,8 @@ import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "examples", "jobs"))
 
 from qoc_tpu_torch import interop  # noqa: E402
 from qoc_tpu_torch.models import dressed, gates, operators  # noqa: E402
@@ -71,6 +73,10 @@ from qoc_tpu_torch.models.system import ControlProblem  # noqa: E402
 from qoc_tpu_torch.ops import _cuda  # noqa: E402
 from qoc_tpu_torch.ops.isomorphism import c_to_r_mat  # noqa: E402
 from qoc_tpu_torch.optim.convergence import ConvergenceSettings  # noqa: E402
+from qoc_tpu_torch.utils import profiling  # noqa: E402
+# config 4's system and constants (examples/jobs/torch_make_transmon_cavity.py)
+from torch_make_transmon_cavity import (  # noqa: E402
+    MAXA, STEPS, TOTAL_TIME, build_system)
 
 REPEATS = 3
 # warm-up iterations of the per-iteration windows (--quick: 1)
@@ -227,38 +233,6 @@ def _cavity_dim24_problem():
     rc = {"dwdt": 0.0001, "bandpass": 0.1, "band": [0.1, 10.0],
           "speed_up": 0.001}
     return problem, rc
-
-
-# examples/jobs/make_transmon_cavity.py's constants (a numpy copy: that
-# script imports qoc_tpu)
-QLEV, CLEV = 3, 20
-DELTA_C = 2 * np.pi * 0.6      # cavity-qubit detuning (GHz)
-ALPHA = -2 * np.pi * 0.2       # transmon anharmonicity
-G = 2 * np.pi * 0.1            # J-C coupling
-MAXA = 2 * np.pi * 0.3
-TOTAL_TIME = 40.0              # ns
-STEPS = 1000
-
-
-def build_system():
-    """make_transmon_cavity.build_system: the dim-60 transmon-cavity
-    Hamiltonian in the qubit rotating frame, qubit and cavity drives."""
-    aq = operators.annihilate(QLEV)
-    ac = operators.annihilate(CLEV)
-    Iq = np.eye(QLEV)
-    Ic = np.eye(CLEV)
-    nc = np.kron(Iq, ac.conj().T @ ac)
-    kerr = np.kron(aq.conj().T @ aq.conj().T @ aq @ aq, Ic)
-    coup = np.kron(aq, Ic) @ np.kron(Iq, ac).conj().T
-    coup = coup + coup.conj().T
-    H0 = DELTA_C * nc + (ALPHA / 2) * kerr + G * coup
-    drives = [
-        np.kron(aq + aq.conj().T, Ic),
-        np.kron(1j * (aq - aq.conj().T), Ic),
-        np.kron(Iq, ac + ac.conj().T),
-        np.kron(Iq, 1j * (ac - ac.conj().T)),
-    ]
-    return H0, drives, ["qx", "qy", "cx", "cy"]
 
 
 def _cavity_dim60_problem():
@@ -635,16 +609,6 @@ def wall_clock_to_fidelity(dev, engine, target=1e-4, warm_segment=True):
 # ---------------------------------------------------------------------------
 
 
-def card_line(dev) -> str:
-    """nvidia-smi's ``name, power.limit`` of the card."""
-    if dev.type != "cuda":
-        return "cpu"
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-
-
 def run(dev, quick: bool = False, only=None) -> dict:
     """Every window of ``dev``'s branch (or those of them named in
     ``only``); returns the JSON line's dict."""
@@ -758,7 +722,7 @@ def run(dev, quick: bool = False, only=None) -> dict:
         "unit": "iters/sec",
         "vs_baseline": ratio(ips, cpu_ips) if on_card else 1.0,
         "device": (torch.cuda.get_device_name(dev) if on_card else "cpu"),
-        "card": card_line(dev),
+        "card": profiling.card(dev),
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
         "cpu_threads": {"torch": torch.get_num_threads(),

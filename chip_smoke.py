@@ -133,7 +133,25 @@ Phases (each prints one line with its numbers; any failed check raises):
      ("error")`` (no read from the card while the launches queue), with
      the bits of ``make_segment_runner`` with convergence off; 12c the
      converging segment loop (bench.py's wall clock to 1 - 1e-4) ends
-     below 1e-4.  The full run is ``python3 bench_torch.py``.
+     below 1e-4.  The full run is ``python3 bench_torch.py``;
+  13. the programs, in a process of its own: 13a the example scripts
+     examples/torch_0[1-4]_*.py through their ``main()`` with no device
+     (the card), 01-03 at their full budgets, 04 cut to 50 of its 2000
+     iterations (phase 8c holds config 4 to its bar on the same route):
+     each routed as its docstring says (01 to kernel 3, 02
+     and 03 to its costs instance, 04 to pscan over kernel 7; launch
+     counts as in phase 4, and the script's own JSON line reports the
+     same), 1 - loss within the run's bar of its float64 readout; 13b
+     ``python -m pytest tests_gpu`` (the on-card lane, tests_tpu's
+     counterpart: kernels 1-7 against float64 host oracles and the
+     per-iteration engines) in a process of its own: 16 tests pass, the
+     only skip allowed the h5py one; 13c tools/torch_scaling_evidence.py
+     ``--dispatch --collectives 1 --weak 2 --dryrun 2``: kernel 6's
+     dispatch cost, its split, and the efficiency at update_step 100 (at
+     least EFFICIENCY_BAR), no collective in the hot loop of either sharded
+     runner at a world of one on NCCL, the same per-seed losses bit for bit
+     on one and two gloo ranks on the one card, and the dry run's four
+     mechanisms on two gloo ranks.
 
 Every kernel's entry in the kernels line carries its bound: the larger of
 its operations over 67 TFLOP/s (float32 outside the tensor cores) and its
@@ -141,9 +159,9 @@ bytes over 3.35 TB/s, at the timed shape.  The second-to-last line is that
 JSON object; the last line is ``{"ok": true, "device": {...}}``.  Without
 a CUDA device the script exits with code 2 and prints no result.
 ``--phases 8`` (or ``2-4``, ``5-7``, ``9``, ``10``, ``11``, ``12``,
-comma-separated) runs phase 1 and the groups named, and prints only their
-kernels (groups 9-12 add none: they drive the kernels through new entry
-points).
+``13``, comma-separated) runs phase 1 and the groups named, and prints
+only their kernels (groups 9-13 add none: they drive the kernels through
+new entry points).
 """
 
 from __future__ import annotations
@@ -2825,6 +2843,220 @@ def phase_measurement(dev) -> None:
     _line("phase12", wall_s=time.perf_counter() - t0)
 
 
+# ---- group 13: the example scripts, the on-card test lane and the scaling
+# evidence -----------------------------------------------------------------
+
+# 13a: each example through its main() on the card: (example, kernels that
+# must launch during it, its routing line, its iteration budget (None: the
+# original's), the bar on |fidelity_f64 - (1 - loss)|).  The bars: phase
+# 4's on the pi pulse (the same problem and settings), GAP_CEILING on the
+# segment kernel's costs runs, phase 8c's on config 4.  Example 04 is cut
+# to 50 of its 2000 iterations: enough to show its main(), its arguments
+# and its route; phase 8c runs config 4 through pscan for 2000 iterations
+# against its bar on 1 - loss.
+EXAMPLE04_ITERATIONS = 50
+EXAMPLE_RUNS = [
+    ("01_qubit_pi_pulse", ("mega_segment",), MEGA, None, 2e-6),
+    ("02_cnot_gate", ("mega_segment_costs",),
+     "mega (fused Adam segment CUDA kernel, penalties: dwdt, envelope)",
+     None, GAP_CEILING),
+    ("03_transmon_leakage", ("mega_segment_costs",), LEAKAGE, None,
+     GAP_CEILING),
+    ("04_transmon_cavity", ("expm_forward",), "pscan", EXAMPLE04_ITERATIONS,
+     5e-5)]
+# 13b: tests_gpu's tests, and the one skip allowed (the card's machine has
+# no h5py; resume on the card is phase 9b's)
+LANE_TESTS = 16
+LANE_SKIP = "test_grape_save_resume_roundtrip_on_gpu"
+# 13c: tools/torch_scaling_evidence.py's modes on the card
+SCALING_ARGV = ["--dispatch", "--collectives", "1", "--weak", "2",
+                "--dryrun", "2"]
+# the least efficiency at update_step 100: 100 iterations of 1024 seeds at
+# T = 1000 (about 167 ms) against one segment's dispatch cost, which may
+# take at most half a percent (about 0.8 ms)
+EFFICIENCY_BAR = 99.5
+
+
+def _load_example(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", os.path.join(HERE, "examples", f"torch_{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples() -> None:
+    """13a: examples/torch_0[1-4]_*.py through their ``main()`` on the
+    card (no device: the card), 01-03 at their full budgets, 04 cut to
+    EXAMPLE04_ITERATIONS.  Launch counts are reset just before each run
+    and read just after: the route's kernels must launch, the routing line
+    must be the route's, the example's own JSON line must report the same
+    launches, and 1 - loss must sit within the run's bar of its float64
+    readout; the penalty runs must lower reg_loss from iteration 0."""
+    import qoc_tpu_torch as q
+    from qoc_tpu_torch.ops import _cuda
+
+    real = q.Grape
+    failures = []
+    for name, kernels, route, budget, bar in EXAMPLE_RUNS:
+        mod = _load_example(name)
+        seen = []
+
+        def spy(*args, **kwargs):
+            seen.append((args, kwargs, real(*args, **kwargs)))
+            return seen[-1][2]
+
+        q.Grape = spy
+        try:
+            _cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            summary = mod.main(max_iterations=budget)
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        finally:
+            q.Grape = real
+        (args, kwargs, res), = seen
+        gap = abs(res.fidelity_f64 - (1.0 - res.loss))
+        fields = dict(example=name, engine=res.engine,
+                      iterations=res.iterations, loss=res.loss,
+                      one_minus_loss=1.0 - res.loss,
+                      fidelity_f64=res.fidelity_f64, fidelity_f64_gap=gap,
+                      gap_bar=bar, wall_s=wall, grape_wall_s=summary["wall_s"],
+                      iters_per_s=res.iterations / summary["wall_s"],
+                      launches=launches, card=summary["card"])
+        ok = (res.engine == route and summary["launches"] == launches
+              and all(launches.get(k, 0) >= 1 for k in kernels)
+              and np.all(np.isfinite(res.uks)) and gap <= bar)
+        if kwargs.get("reg_coeffs"):
+            reg0 = _reg_loss_at_start({"kwargs": kwargs}, res.problem)
+            fields["reg_loss_iteration_0"] = reg0
+            fields["reg_loss"] = res.reg_loss
+            ok = ok and res.reg_loss < reg0
+        else:
+            ok = ok and res.loss < kwargs["convergence"]["conv_target"]
+        _line("phase13a", **fields)
+        if not ok:
+            failures.append(
+                f"{name}: routed to {res.engine!r} (want {route!r}), "
+                f"launches {launches} (want {kernels} >= 1; its line says "
+                f"{summary['launches']}), |fidelity_f64 - (1 - loss)| "
+                f"{gap:.3e} (<= {bar:.1e}), loss {res.loss:.3e}, reg_loss "
+                f"{res.reg_loss:.4e} (below iteration 0's where penalised, "
+                f"else loss below conv_target)")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def phase_gpu_lane() -> None:
+    """13b: ``python -m pytest tests_gpu -q`` in a process of its own on
+    the card: all LANE_TESTS tests pass, but for LANE_SKIP, which may skip
+    only for want of h5py.  The line carries the gaps each test recorded
+    against its oracles (its junit XML's properties)."""
+    import tempfile
+    import xml.etree.ElementTree as ET
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lane_") as tmp:
+        xml = os.path.join(tmp, "lane.xml")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "pytest", "tests_gpu", "-q", "-rs",
+             "-p", "no:cacheprovider", f"--junitxml={xml}",
+             "-o", "junit_family=xunit1"], cwd=HERE,
+            capture_output=True, text=True, timeout=600,
+            env={k: v for k, v in os.environ.items()
+                 if k != "QOC_TPU_TORCH_TEST_DEVICE"})
+        wall = time.perf_counter() - t0
+        print(r.stdout[-4000:], flush=True)
+        cases, gaps = {}, {}
+        if os.path.exists(xml):
+            for case in ET.parse(xml).getroot().iter("testcase"):
+                outcome = "passed"
+                for child in case:
+                    if child.tag in ("failure", "error", "skipped"):
+                        outcome = (child.tag, child.get("message", ""))
+                        break
+                cases[case.get("name")] = outcome
+                gaps[case.get("name")] = {
+                    q.get("name"): float(q.get("value"))
+                    for q in case.iter("property")}
+    passed = sorted(n for n, o in cases.items() if o == "passed")
+    others = {n: o for n, o in cases.items() if o != "passed"}
+    allowed = (set(others) <= {LANE_SKIP}
+               and all(o[0] == "skipped" and "h5py" in o[1]
+                       for o in others.values()))
+    _line("phase13b", tests=len(cases), passed=len(passed),
+          not_passed=others, wall_s=wall, exit_code=r.returncode,
+          gaps=gaps)
+    if not (len(cases) == LANE_TESTS and allowed and r.returncode == 0):
+        raise AssertionError(
+            f"13b: tests_gpu ran {len(cases)} tests (want {LANE_TESTS}), "
+            f"exit code {r.returncode}, not passed {others} (only "
+            f"{LANE_SKIP} may skip, for h5py); stderr {r.stderr[-2000:]}")
+
+
+def phase_scaling_evidence() -> None:
+    """13c: tools/torch_scaling_evidence.py on the card: the dispatch cost
+    of kernel 6, its split and the efficiency at update_step 100 (at least
+    EFFICIENCY_BAR), the collectives per segment of both sharded runners
+    at a world of one on NCCL (none in the hot loop), weak-scaling identity
+    on one and two gloo ranks on the one card (the tool exits 1 where the
+    losses differ or the hot loop calls a collective), and the dry run's
+    four mechanisms on two gloo ranks.  (Identity at 1-8 ranks,
+    ``--weak 8``, takes a call of its own: about 8 s a rank process.)"""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, os.path.join("tools", "torch_scaling_evidence.py"),
+         *SCALING_ARGV], cwd=HERE, capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    lines = r.stdout.strip().splitlines()
+    if r.returncode != 0 or not lines:
+        raise AssertionError(f"13c: exit code {r.returncode}: "
+                             f"{r.stdout[-3000:]} {r.stderr[-3000:]}")
+    rep = json.loads(lines[-1])
+    d, c, w = rep["dispatch"], rep["collectives"], rep["weak_scaling"]
+    oks = [x for x in lines if x.startswith("dryrun mechanism")
+           and x.endswith(": ok")]
+    checks = {
+        "dispatch kernel 6": d["launches"].get("mega_batch_segment", 0) >= 1,
+        "efficiency": (EFFICIENCY_BAR <= d["efficiency_update_step_100_pct"]
+                       <= 100.0),
+        "nccl world of one": c["ranks"] == 1 and c["backend"] == "nccl",
+        "hot loop": all(c[k]["hot_loop"] == 0
+                        for k in ("mega_batch", "xla_cols_dim200")),
+        "collectives kernel 6": c["launches"].get("mega_batch_segment",
+                                                  0) >= 1,
+        "weak scaling": ([x["ranks"] for x in w["sizes"]] == [1, 2]
+                         and all(x["losses_identical_to_1rank"]
+                                 for x in w["sizes"])),
+        "weak scaling kernel 6": all(
+            x["launches"].get("mega_batch_segment", 0) >= 1
+            for x in w["sizes"]),
+        "dry run": len(oks) == 4 and rep["dryrun"]["ranks"] == 2,
+        "dry run kernel 6": rep["dryrun"]["launches"].get(
+            "mega_batch_segment", 0) >= 1,
+    }
+    _line("phase13c", card=rep["card"], wall_s=wall, dispatch=d,
+          collectives=c, weak_scaling=w,
+          dryrun={k: rep["dryrun"][k] for k in ("ranks", "backend",
+                                                "launches")},
+          checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"13c: {checks}")
+
+
+def phase_programs() -> None:
+    """Group 13, in a process of its own: 13a the example scripts, 13b the
+    on-card test lane, 13c the scaling evidence."""
+    t0 = time.perf_counter()
+    phase_examples()
+    phase_gpu_lane()
+    phase_scaling_evidence()
+    _line("phase13", wall_s=time.perf_counter() - t0)
+
+
 def run_in_new_process(*calls: str) -> None:
     """Run ``calls`` (statements over this module, ``chip_smoke``, and
     ``dev``, the card) in a Python process of their own, which prints to this
@@ -2867,7 +3099,7 @@ def _kernel(name: str, source: str, replaces: str, launches: dict,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
-GROUPS = ("2-4", "5-7", "8", "9", "10", "11", "12")
+GROUPS = ("2-4", "5-7", "8", "9", "10", "11", "12", "13")
 
 
 def main() -> int:
@@ -2989,6 +3221,8 @@ def main() -> int:
         run_in_new_process("chip_smoke.phase_distribution(dev)")
     if "12" in groups:
         run_in_new_process("chip_smoke.phase_measurement(dev)")
+    if "13" in groups:
+        run_in_new_process("chip_smoke.phase_programs()")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

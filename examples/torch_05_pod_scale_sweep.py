@@ -36,7 +36,6 @@ import argparse
 import hashlib
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -59,6 +58,7 @@ from qoc_tpu_torch.parallel.mega_batch import (  # noqa: E402
 from qoc_tpu_torch.parallel.mesh import (  # noqa: E402
     gather, init_distributed, make_mesh)
 from qoc_tpu_torch.utils import profiling  # noqa: E402
+
 
 # (seeds, iterations, columns per chunk) with and without --full
 FULL = (4096, 1200, 2048)
@@ -101,17 +101,6 @@ def detuning_channel(problem, n_op, n_seeds: int, n_grid: int):
     return extra, deltas, grid
 
 
-def card(device) -> str:
-    """``name, power limit`` of the card as nvidia-smi gives them, or the
-    device's type off the card."""
-    if device.type != "cuda":
-        return device.type
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-
-
 def pi_pulse():
     """run_quick's qubit pi pulse: T = 1000, maxA 0.7."""
     return ControlProblem.build(
@@ -152,7 +141,7 @@ def run_quick(mesh, device=None):
     out = quick_seeds(mesh, device)
     losses = quick_sweep(mesh, device)
     rep = {"program": "quick", "ranks": mesh.size(),
-           "card": card(entry_device(device)), "seeds": QUICK_SEEDS,
+           "card": profiling.card(entry_device(device)), "seeds": QUICK_SEEDS,
            "best_loss": out["best_loss"],
            "converged": int(np.sum(out["converged"])),
            "iterations": out["iterations"],
@@ -216,7 +205,7 @@ def run_full(n_seeds=4096, n_grid=64, max_iterations=1200,
     mem = profiling.memory_stats(device)
     rep = {
         "config": "BASELINE config 5 (dim 200, seeds x detuning grid)",
-        "card": card(device),
+        "card": profiling.card(device),
         "n_seeds": n_seeds,
         "n_grid": n_grid,
         "dim": problem.state_num,

@@ -6,7 +6,8 @@ The same three names and return shapes: ``trace`` captures a
 readable in Perfetto or ``chrome://tracing``), ``time_fn`` times a
 callable with the card synchronised, and ``memory_stats`` reads the
 device allocator's statistics.  ``kernel_events`` reads the device
-kernels back from a trace.
+kernels back from a trace, and ``card`` names the card a measurement ran
+on.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import subprocess
 import time
 from typing import Callable, Optional
 
@@ -106,3 +108,15 @@ def memory_stats(device=None) -> Optional[dict]:
     stats = dict(torch.cuda.memory_stats(device))
     stats["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
     return stats
+
+
+def card(device) -> str:
+    """``name, power limit`` of the card as nvidia-smi gives them, or the
+    device's type off the card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device.type
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]

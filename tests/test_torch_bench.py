@@ -184,11 +184,17 @@ def test_builder_matches_bench_py(name, port, ref):
 
 
 def test_dim60_system_is_make_transmon_cavity():
-    """The numpy copy of examples/jobs/make_transmon_cavity.py's system
-    and constants."""
+    """bench_torch.py builds config 4 from the port's generator
+    (examples/jobs/torch_make_transmon_cavity.py, its one copy), whose
+    system and constants are examples/jobs/make_transmon_cavity.py's."""
+    import torch_make_transmon_cavity as tmtc
+
     mtc = _make_transmon_cavity()
+    assert bench_torch.build_system is tmtc.build_system
     for k in ("QLEV", "CLEV", "DELTA_C", "ALPHA", "G", "MAXA", "TOTAL_TIME",
               "STEPS"):
+        assert getattr(tmtc, k) == getattr(mtc, k), k
+    for k in ("MAXA", "TOTAL_TIME", "STEPS"):
         assert getattr(bench_torch, k) == getattr(mtc, k), k
     _assert_same(bench_torch.build_system(), mtc.build_system(), "system")
 

@@ -1,0 +1,97 @@
+"""The port's on-card lane (tests_gpu/) against qoc_tpu's (tests_tpu/):
+every test of tests_tpu has its counterpart, named alike (``_on_tpu`` /
+``_on_mxu`` become ``_on_gpu``) and holding the same tolerances; the lane
+passes on the CPU through the plain versions under
+``QOC_TPU_TORCH_TEST_DEVICE=cpu``, and without that switch and without a
+card every test skips.  The files are read with ``ast``: tests_tpu
+imports jax and is never imported here."""
+
+import ast
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TPU, GPU = os.path.join(REPO, "tests_tpu"), os.path.join(REPO, "tests_gpu")
+TPU_FILES = ("test_kernels_on_tpu.py", "test_mega_on_tpu.py",
+             "test_grape_on_tpu.py")
+N_TESTS = 16
+# seconds for the lane on the CPU; a run that takes longer fails
+LANE_TIMEOUT = 90
+
+
+def _gpu_name(name: str) -> str:
+    return re.sub(r"_on_(tpu|mxu)$", "_on_gpu", name)
+
+
+def _tests(path: str) -> dict:
+    """test name -> its function's AST, for each top-level test."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    return {n.name: n for n in tree.body
+            if isinstance(n, ast.FunctionDef) and n.name.startswith("test_")}
+
+
+def _tolerances(fn) -> list:
+    """The numbers a test compares against: every atol=/rtol= constant and
+    every constant on the right of a ``<``, sorted."""
+    out = []
+    for node in ast.walk(fn):
+        if isinstance(node, ast.keyword) and node.arg in ("atol", "rtol"):
+            out.append(ast.literal_eval(node.value))
+        elif isinstance(node, ast.Compare):
+            for op, right in zip(node.ops, node.comparators):
+                if isinstance(op, ast.Lt) and isinstance(right, ast.Constant):
+                    out.append(right.value)
+    return sorted(out)
+
+
+PAIRS = [(tpu_file, name)
+         for tpu_file in TPU_FILES
+         for name in _tests(os.path.join(TPU, tpu_file))]
+
+
+def test_every_tpu_test_has_a_gpu_counterpart():
+    assert len(PAIRS) == N_TESTS
+    want = {(f.replace("_on_tpu", "_on_gpu"), _gpu_name(n))
+            for f, n in PAIRS}
+    got = {(f, n) for f in os.listdir(GPU) if f.startswith("test_")
+           for n in _tests(os.path.join(GPU, f))}
+    assert got == want
+
+
+@pytest.mark.parametrize("tpu_file,name", PAIRS,
+                         ids=[n for _, n in PAIRS])
+def test_counterpart_keeps_the_tolerances(tpu_file, name):
+    tpu = _tests(os.path.join(TPU, tpu_file))[name]
+    gpu = _tests(os.path.join(GPU, tpu_file.replace("_on_tpu", "_on_gpu"))
+                 )[_gpu_name(name)]
+    assert _tolerances(gpu) == _tolerances(tpu)
+
+
+def _lane(**env):
+    """``pytest tests_gpu`` in a process of its own, with ``env`` over
+    this one's environment (the lane's CPU switch only where given)."""
+    base = {k: v for k, v in os.environ.items()
+            if k != "QOC_TPU_TORCH_TEST_DEVICE"}
+    return subprocess.run(
+        [sys.executable, "-m", "pytest", "tests_gpu", "-q",
+         "-p", "no:cacheprovider", "-p", "no:randomly", "-rs"],
+        cwd=REPO, capture_output=True, text=True, timeout=LANE_TIMEOUT,
+        env=dict(base, OMP_NUM_THREADS="1", **env))
+
+
+def test_lane_passes_on_the_cpu():
+    out = _lane(QOC_TPU_TORCH_TEST_DEVICE="cpu")
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert f"{N_TESTS} passed" in out.stdout, out.stdout
+
+
+def test_lane_skips_without_a_card():
+    out = _lane(CUDA_VISIBLE_DEVICES="")
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert f"{N_TESTS} skipped" in out.stdout, out.stdout
+    assert "needs an NVIDIA card" in out.stdout, out.stdout

@@ -57,6 +57,7 @@ import torch  # noqa: E402
 import bench_torch  # noqa: E402
 from chip_smoke import (PEAK_BYTES, PEAK_FLOPS, expm_work,  # noqa: E402
                         segment_work, tree_macs)
+from qoc_tpu_torch.utils import profiling  # noqa: E402
 
 F32 = 4
 DIM200_SEEDS = 128      # bench_torch's dim200_cavity_128seed window
@@ -231,8 +232,6 @@ def roofline(flops: float, nbytes: float, iters_per_sec: float) -> dict:
 def _trace_window(log_dir: str, name: str, fn, top: int = 12) -> dict:
     """Trace ``fn()`` with ``utils.profiling.trace`` and list the top
     device kernels by time."""
-    from qoc_tpu_torch.utils import profiling
-
     fn()                                    # warm
     torch.cuda.synchronize()
     path = os.path.join(log_dir, name)
@@ -297,7 +296,7 @@ def main(argv=None) -> int:
         print("torch_roofline: torch sees no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    report = {"card": bench_torch.card_line(dev),
+    report = {"card": profiling.card(dev),
               "ceilings": {"f32_tflops": PEAK_FLOPS / 1e12,
                            "hbm_tb_per_s": PEAK_BYTES / 1e12}}
     if args.trace:
