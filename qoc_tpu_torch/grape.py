@@ -56,6 +56,7 @@ from .routing import announce, fused_fallback_reasons
 from .utils import analysis as _analysis
 from .utils.checkpoint import (checkpoint_leaves, load_checkpoint,
                                save_checkpoint, state_from_leaves)
+from .utils.profiling import span
 
 
 class GrapeResult:
@@ -128,75 +129,135 @@ def Grape(
     device=None,
 ) -> GrapeResult:
     grape_start_time = time.time()
-    time_unit = {"GHz": "ns", "MHz": "us", "KHz": "ms", "Hz": "s"}[freq_unit]
-    method_u = method.upper()
-    if method_u not in ("ADAM", "EVOLVE") + LBFGS_NAMES + SCIPY_NAMES:
-        raise ValueError(f"unknown method {method!r}")
-    device = entry_device(device)
+    with span("qoc.grape.front_end"):
+        time_unit = {"GHz": "ns", "MHz": "us", "KHz": "ms",
+                     "Hz": "s"}[freq_unit]
+        method_u = method.upper()
+        if method_u not in ("ADAM", "EVOLVE") + LBFGS_NAMES + SCIPY_NAMES:
+            raise ValueError(f"unknown method {method!r}")
+        device = entry_device(device)
 
-    file_path = None
-    if save:
-        from .utils.h5 import next_run_path, require_h5py
+        file_path = None
+        if save:
+            from .utils.h5 import next_run_path, require_h5py
 
-        require_h5py()
-        if file_name is None:
-            raise ValueError("Grape function input: file_name, is not specified.")
-        if data_path is None:
-            raise ValueError("Grape function input: data_path, is not specified.")
-        file_path = next_run_path(data_path, file_name)
-        print("data saved at: " + str(file_path))
+            require_h5py()
+            if file_name is None:
+                raise ValueError(
+                    "Grape function input: file_name, is not specified.")
+            if data_path is None:
+                raise ValueError(
+                    "Grape function input: data_path, is not specified.")
+            file_path = next_run_path(data_path, file_name)
+            print("data saved at: " + str(file_path))
 
-    conv = ConvergenceSettings.from_dict(convergence)
+        conv = ConvergenceSettings.from_dict(convergence)
 
-    if save:
-        from .utils.h5 import save_run_inputs
+        if save:
+            from .utils.h5 import save_run_inputs
 
-        save_run_inputs(
-            file_path,
-            H0=H0, Hops=Hops, Hnames=Hnames, U=U,
-            total_time=total_time, steps=steps,
-            states_concerned_list=states_concerned_list,
-            maxA=maxA, initial_guess=initial_guess, method=method,
-            convergence=convergence
-            or {"rate": conv.rate, "update_step": conv.update_step,
-                "max_iterations": conv.max_iterations,
-                "conv_target": conv.conv_target,
-                "learning_rate_decay": conv.learning_rate_decay},
-            reg_coeffs=reg_coeffs, dressed_info=dressed_info,
-            use_gpu=use_gpu, sparse_H=sparse_H, sparse_U=sparse_U,
-            sparse_K=sparse_K,
+            save_run_inputs(
+                file_path,
+                H0=H0, Hops=Hops, Hnames=Hnames, U=U,
+                total_time=total_time, steps=steps,
+                states_concerned_list=states_concerned_list,
+                maxA=maxA, initial_guess=initial_guess, method=method,
+                convergence=convergence
+                or {"rate": conv.rate, "update_step": conv.update_step,
+                    "max_iterations": conv.max_iterations,
+                    "conv_target": conv.conv_target,
+                    "learning_rate_decay": conv.learning_rate_decay},
+                reg_coeffs=reg_coeffs, dressed_info=dressed_info,
+                use_gpu=use_gpu, sparse_H=sparse_H, sparse_U=sparse_U,
+                sparse_K=sparse_K,
+            )
+
+        problem = ControlProblem.build(
+            H0, Hops, Hnames, U, total_time, steps, states_concerned_list,
+            U0=U0, dressed_info=dressed_info, maxA=maxA,
+            initial_guess=initial_guess, unitary_error=unitary_error,
+            state_transfer=state_transfer, no_scaling=no_scaling,
+            Taylor_terms=Taylor_terms, use_inter_vecs=use_inter_vecs,
+            seed=seed,
         )
+        validate_reg_coeffs(reg_coeffs, state_num=problem.state_num)
+        print(
+            "Using %d Taylor terms and %d Scaling & Squaring terms"
+            % (problem.taylor_terms, problem.taylor_scaling)
+        )
+        if save:
+            from .utils.h5 import H5File
 
-    problem = ControlProblem.build(
-        H0, Hops, Hnames, U, total_time, steps, states_concerned_list,
-        U0=U0, dressed_info=dressed_info, maxA=maxA,
-        initial_guess=initial_guess, unitary_error=unitary_error,
-        state_transfer=state_transfer, no_scaling=no_scaling,
-        Taylor_terms=Taylor_terms, use_inter_vecs=use_inter_vecs, seed=seed,
-    )
-    validate_reg_coeffs(reg_coeffs, state_num=problem.state_num)
-    print(
-        "Using %d Taylor terms and %d Scaling & Squaring terms"
-        % (problem.taylor_terms, problem.taylor_scaling)
-    )
-    if save:
-        from .utils.h5 import H5File
+            with H5File(file_path, "a") as hf:
+                hf.add("taylor_terms", problem.taylor_terms)
+                hf.add("taylor_scaling", problem.taylor_scaling)
+                hf.add("initial_vectors_c", problem.initial_vectors_c)
 
-        with H5File(file_path, "a") as hf:
-            hf.add("taylor_terms", problem.taylor_terms)
-            hf.add("taylor_scaling", problem.taylor_scaling)
-            hf.add("initial_vectors_c", problem.initial_vectors_c)
+        # analysis forward (emits inter_vecs) vs lean optimization loss
+        fwd_engine = "auto" if engine == "mega" else engine
+        forward, _ = make_forward(problem, reg_coeffs=reg_coeffs,
+                                  gradient_mode=gradient_mode,
+                                  engine=fwd_engine, lean=False, device=device,
+                                  remat=remat)
+        _, loss_fn = make_forward(problem, reg_coeffs=reg_coeffs,
+                                  gradient_mode=gradient_mode,
+                                  engine=fwd_engine, lean=True, device=device,
+                                  remat=remat)
 
-    # analysis forward (emits inter_vecs) vs lean optimization loss
-    fwd_engine = "auto" if engine == "mega" else engine
-    forward, _ = make_forward(problem, reg_coeffs=reg_coeffs,
-                              gradient_mode=gradient_mode,
-                              engine=fwd_engine, lean=False, device=device,
-                              remat=remat)
-    _, loss_fn = make_forward(problem, reg_coeffs=reg_coeffs,
-                              gradient_mode=gradient_mode,
-                              engine=fwd_engine, lean=True, device=device,
-                              remat=remat)
+        start_time = time.time()
+        nfev = None
+        iterative = method_u not in ("EVOLVE",) + SCIPY_NAMES
+        if iterative:
+            # Adam or the native L-BFGS, in segments up to the update_step grid
+            adam = method_u == "ADAM"
+            on_cuda = device.type == "cuda"
+            use_mega = (
+                adam and engine in ("auto", "mega")
+                and mega_supported(problem, reg_coeffs, gradient_mode)
+                and (engine == "mega" or on_cuda)
+            )
+            if use_mega:
+                names = cost_names(reg_coeffs)
+                resolved = "mega ({}{})".format(
+                    "fused Adam segment CUDA kernel" if on_cuda
+                    else "plain torch segment reference on cpu",
+                    ", penalties: " + ", ".join(names) if names else "")
+                announce("engine", resolved)
+                init_mega, run_mega, unpad = make_mega_segment_runner(
+                    problem, conv, reg_coeffs=reg_coeffs, device=device)
+                state = init_mega(problem.u0_base)
+
+                def advance(s, stop_at):
+                    return run_mega(s, stop_at - s.iteration)
+            else:
+                resolved = loss_fn.resolved_engine
+                announce("engine", resolved, reasons=(
+                    fused_fallback_reasons(problem, reg_coeffs, gradient_mode,
+                                           on_accel=on_cuda)
+                    if adam and engine == "auto" else None))
+                u0 = torch.as_tensor(problem.u0_base, device=device)
+                if adam:
+                    advance = make_segment_runner(loss_fn, conv)
+                    state = init_adam_state(u0, conv)
+                else:
+                    init_lbfgs, advance = make_lbfgs_runner(loss_fn, conv)
+                    state = init_lbfgs(u0)
+
+                def unpad(u):
+                    return u.detach().cpu().numpy()
+
+            def host_u(s):
+                return unpad(s.u_base)
+
+            def checkpoint_now(s):
+                save_checkpoint(file_path, checkpoint_leaves(s, problem.steps),
+                                s.iteration)
+
+            if resume_from is not None and adam:
+                leaves, it_r = load_checkpoint(resume_from)
+                state = state_from_leaves(leaves, it_r, problem.steps,
+                                          state.u_base.shape[1], device)
+                print(f"resumed from {resume_from} at iteration {it_r}")
 
     def analyse(u_base):
         with torch.no_grad():
@@ -294,9 +355,6 @@ def Grape(
             nxt = min(nxt, (it // es + 1) * es)
         return min(nxt, conv.max_iterations + 1)
 
-    start_time = time.time()
-    nfev = None
-
     if method_u == "EVOLVE":
         resolved = forward.resolved_engine
         announce("engine", resolved)
@@ -333,124 +391,86 @@ def Grape(
             print("Error = %1.2e" % loss)
             print("Total time is " + str(time.time() - start_time))
     else:
-        # Adam or the native L-BFGS, in segments up to the update_step grid
-        adam = method_u == "ADAM"
-        on_cuda = device.type == "cuda"
-        use_mega = (
-            adam and engine in ("auto", "mega")
-            and mega_supported(problem, reg_coeffs, gradient_mode)
-            and (engine == "mega" or on_cuda)
-        )
-        if use_mega:
-            names = cost_names(reg_coeffs)
-            resolved = "mega ({}{})".format(
-                "fused Adam segment CUDA kernel" if on_cuda
-                else "plain torch segment reference on cpu",
-                ", penalties: " + ", ".join(names) if names else "")
-            announce("engine", resolved)
-            init_mega, run_mega, unpad = make_mega_segment_runner(
-                problem, conv, reg_coeffs=reg_coeffs, device=device)
-            state = init_mega(problem.u0_base)
+        # the loop's span holds the host's moments between a segment's span
+        # and its boundary's, so that a profile charges them to the program
+        with span("qoc.grape.loop"):
+            try:
+                while True:
+                    with span("qoc.grape.segment"):
+                        state = advance(state, next_stop(state.iteration))
+                    with span("qoc.grape.boundary"):
+                        it_now = state.iteration
+                        if it_now % conv.update_step == 0 or state.done:
+                            save_step(it_now, state.loss, state.reg_loss,
+                                      state.grad_squared, state.unitary_scale,
+                                      host_u(state), start_time,
+                                      lr=(conv.learning_rate(it_now) if adam
+                                          else None))
+                            if save and adam:
+                                checkpoint_now(state)
+                        else:
+                            evol_boundary_step(it_now, state.loss,
+                                               state.reg_loss,
+                                               state.unitary_scale,
+                                               host_u(state), start_time)
+                    if state.done:
+                        break
+            except KeyboardInterrupt:
+                # graceful interrupt of an Adam run (grape.py:130-139): persist
+                # the wall clock and the latest checkpoint, return the current
+                # iterate; the run resumes with resume_from=<file>
+                if not adam:
+                    raise
+                if save:
+                    from .utils.h5 import H5File
 
-            def advance(s, stop_at):
-                return run_mega(s, stop_at - s.iteration)
+                    checkpoint_now(state)
+                    with H5File(file_path, "a") as hf:
+                        hf.add("wall_clock_time",
+                               np.array(time.time() - grape_start_time))
+                    print("interrupted; data saved at: " + str(file_path))
+
+    with span("qoc.grape.readout"):
+        if iterative:
+            u_base = host_u(state)
+            loss, reg_loss = state.loss, state.reg_loss
+            uscale = state.unitary_scale
+            iterations = state.iteration
+            nfev = None if adam else state.evaluations
+            out = analyse(u_base)
+
+        final_state = out.final_state.cpu().numpy()
+        inter_vecs = (None if out.inter_vecs is None
+                      else out.inter_vecs.cpu().numpy())
+        uks = _analysis.uks_from_base(problem, u_base)
+        with span("qoc.grape.fidelity_f64"):
+            fid64 = _analysis.fidelity_f64(problem, uks)
+        if save:
+            _analysis.append_metrics(
+                file_path, error=loss, reg_error=reg_loss, uks=uks,
+                iteration=iterations, run_time=time.time() - start_time,
+                unitary_scale=uscale,
+            )
+            _analysis.append_evolution(file_path, problem, final_state,
+                                       inter_vecs)
+
+        if problem.state_transfer:
+            Uf = []
         else:
-            resolved = loss_fn.resolved_engine
-            announce("engine", resolved, reasons=(
-                fused_fallback_reasons(problem, reg_coeffs, gradient_mode,
-                                       on_accel=on_cuda)
-                if adam and engine == "auto" else None))
-            u0 = torch.as_tensor(problem.u0_base, device=device)
-            if adam:
-                advance = make_segment_runner(loss_fn, conv)
-                state = init_adam_state(u0, conv)
-            else:
-                init_lbfgs, advance = make_lbfgs_runner(loss_fn, conv)
-                state = init_lbfgs(u0)
+            Uf = _analysis.final_state_to_complex(problem, final_state)
 
-            def unpad(u):
-                return u.detach().cpu().numpy()
+        if save:
+            from .utils.h5 import H5File
 
-        def host_u(s):
-            return unpad(s.u_base)
+            with H5File(file_path, "a") as hf:
+                hf.add("wall_clock_time",
+                       np.array(time.time() - grape_start_time))
+                hf.add("fidelity_f64", np.array(fid64))
+            print("data saved at: " + str(file_path))
 
-        def checkpoint_now(s):
-            save_checkpoint(file_path, checkpoint_leaves(s, problem.steps),
-                            s.iteration)
-
-        if resume_from is not None and adam:
-            leaves, it_r = load_checkpoint(resume_from)
-            state = state_from_leaves(leaves, it_r, problem.steps,
-                                      state.u_base.shape[1], device)
-            print(f"resumed from {resume_from} at iteration {it_r}")
-
-        try:
-            while True:
-                state = advance(state, next_stop(state.iteration))
-                it_now = state.iteration
-                if it_now % conv.update_step == 0 or state.done:
-                    save_step(it_now, state.loss, state.reg_loss,
-                              state.grad_squared, state.unitary_scale,
-                              host_u(state), start_time,
-                              lr=conv.learning_rate(it_now) if adam else None)
-                    if save and adam:
-                        checkpoint_now(state)
-                else:
-                    evol_boundary_step(it_now, state.loss, state.reg_loss,
-                                       state.unitary_scale, host_u(state),
-                                       start_time)
-                if state.done:
-                    break
-        except KeyboardInterrupt:
-            # graceful interrupt of an Adam run (grape.py:130-139): persist
-            # the wall clock and the latest checkpoint, return the current
-            # iterate; the run resumes with resume_from=<file>
-            if not adam:
-                raise
-            if save:
-                from .utils.h5 import H5File
-
-                checkpoint_now(state)
-                with H5File(file_path, "a") as hf:
-                    hf.add("wall_clock_time",
-                           np.array(time.time() - grape_start_time))
-                print("interrupted; data saved at: " + str(file_path))
-        u_base = host_u(state)
-        loss, reg_loss = state.loss, state.reg_loss
-        uscale = state.unitary_scale
-        iterations = state.iteration
-        nfev = None if adam else state.evaluations
-        out = analyse(u_base)
-
-    final_state = out.final_state.cpu().numpy()
-    inter_vecs = (None if out.inter_vecs is None
-                  else out.inter_vecs.cpu().numpy())
-    uks = _analysis.uks_from_base(problem, u_base)
-    fid64 = _analysis.fidelity_f64(problem, uks)
-    if save:
-        _analysis.append_metrics(
-            file_path, error=loss, reg_error=reg_loss, uks=uks,
-            iteration=iterations, run_time=time.time() - start_time,
-            unitary_scale=uscale,
+        return GrapeResult(
+            uks=uks, Uf=Uf, u_base=u_base, loss=loss, reg_loss=reg_loss,
+            unitary_scale=uscale, iterations=iterations, history=history,
+            file_path=file_path, inter_vecs=inter_vecs, problem=problem,
+            nfev=nfev, fidelity_f64=fid64, engine=resolved,
         )
-        _analysis.append_evolution(file_path, problem, final_state, inter_vecs)
-
-    if problem.state_transfer:
-        Uf = []
-    else:
-        Uf = _analysis.final_state_to_complex(problem, final_state)
-
-    if save:
-        from .utils.h5 import H5File
-
-        with H5File(file_path, "a") as hf:
-            hf.add("wall_clock_time", np.array(time.time() - grape_start_time))
-            hf.add("fidelity_f64", np.array(fid64))
-        print("data saved at: " + str(file_path))
-
-    return GrapeResult(
-        uks=uks, Uf=Uf, u_base=u_base, loss=loss, reg_loss=reg_loss,
-        unitary_scale=uscale, iterations=iterations, history=history,
-        file_path=file_path, inter_vecs=inter_vecs, problem=problem,
-        nfev=nfev, fidelity_f64=fid64, engine=resolved,
-    )

@@ -31,6 +31,7 @@ import numpy as np
 
 from ..ops.isomorphism import c_to_r_mat, c_to_r_vec
 from ..ops.taylor import choose_taylor_terms
+from ..utils.profiling import spanned
 from .dressed import get_state_index, sort_ev
 
 
@@ -75,6 +76,7 @@ class ControlProblem:
     #                              or stacked target vectors [V, N])
 
     @staticmethod
+    @spanned("qoc.problem.build")
     def build(
         H0,
         Hops,
@@ -120,9 +122,10 @@ class ControlProblem:
             raise ValueError(f"total_time must be positive; got {total_time}")
         herm_err = float(np.max(np.abs(H0 - H0.conj().T))) if state_num else 0.0
         if herm_err > 1e-8 * max(1.0, float(np.max(np.abs(H0)))):
+            # stacklevel 3: past build's span wrapper, to build's caller
             warnings.warn(
                 f"H0 is not Hermitian (max |H0 - H0^dag| = {herm_err:.2e}); "
-                "propagation will not be unitary", stacklevel=2)
+                "propagation will not be unitary", stacklevel=3)
         dt = float(total_time) / steps
 
         if U0 is None:

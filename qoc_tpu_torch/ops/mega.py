@@ -38,6 +38,7 @@ import torch
 from ..interop import adam_state_from_numpy, problem_tensors
 from ..models.costs import CostContext, total_reg_cost
 from ..optim.adam import B1, B2, EPS, AdamState, decay_factor
+from ..utils.profiling import span
 from . import _cuda
 from .expm import taylor_expm, weighted_hamiltonians
 from .tree_chain import next_pow2, tree_chain_reference, tree_chain_supported
@@ -401,27 +402,28 @@ def make_mega_segment_runner(problem, conv, throughput: bool = False,
             return mega_segment_reference(mats, psi0p, target, maxamp,
                                           u0rows, state, int(n),
                                           costs=costs, **statics)
-        K, M = mats.shape[0], mats.shape[1]
-        if not scratch:
-            scratch.extend(
-                _cuda.mega_scratch(K, Tp, device)
-                if costs is None else
-                _cuda.mega_costs_scratch(K, M, Tp, psi0p.shape[1], order,
-                                         scaling, costs.dftc.shape[1],
-                                         costs.traj, device))
-        u = state.u_base.clone()
-        m = state.m.clone()
-        v = state.v.clone()
-        sf = torch.tensor([state.lr, float(state.iteration),
-                           float(state.done)], dtype=torch.float32,
-                          device=device)
-        args = (mats, psi0p, target, maxamp, u0rows, u, m, v, sf)
-        kw = dict(n_iters=int(n), b1=B1, b2=B2, eps=EPS,
-                  scratch=tuple(scratch), clocks=clocks, **statics)
-        if costs is None:
-            met = _cuda.mega_segment(*args, **kw)
-        else:
-            met = _cuda.mega_segment_costs(*args, costs=costs, **kw)
+        with span("qoc.mega.prepare"):
+            K, M = mats.shape[0], mats.shape[1]
+            if not scratch:
+                scratch.extend(
+                    _cuda.mega_scratch(K, Tp, device)
+                    if costs is None else
+                    _cuda.mega_costs_scratch(K, M, Tp, psi0p.shape[1], order,
+                                             scaling, costs.dftc.shape[1],
+                                             costs.traj, device))
+            u = state.u_base.clone()
+            m = state.m.clone()
+            v = state.v.clone()
+            sf = torch.tensor([state.lr, float(state.iteration),
+                               float(state.done)], dtype=torch.float32,
+                              device=device)
+            args = (mats, psi0p, target, maxamp, u0rows, u, m, v, sf)
+            kw = dict(n_iters=int(n), b1=B1, b2=B2, eps=EPS,
+                      scratch=tuple(scratch), clocks=clocks, **statics)
+            if costs is None:
+                met = _cuda.mega_segment(*args, **kw)
+            else:
+                met = _cuda.mega_segment_costs(*args, costs=costs, **kw)
         met = met.tolist()
         return AdamState(
             u_base=u, m=m, v=v, lr=met[3], iteration=int(met[4]),

@@ -28,6 +28,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .convergence import ConvergenceSettings
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -141,18 +142,22 @@ def make_segment_runner(loss_fn: Callable, conv: ConvergenceSettings):
     def run_segment(state: AdamState, stop_at: int) -> AdamState:
         s = state
         while not s.done and s.iteration < stop_at:
-            reg_loss, out, g = _value_and_grad(loss_fn, s.u_base)
-            g2 = float(0.5 * torch.sum(g * g))
-            loss = float(out.loss.detach())
+            with span("qoc.step.grad"):
+                reg_loss, out, g = _value_and_grad(loss_fn, s.u_base)
+            with span("qoc.step.read"):
+                g2 = float(0.5 * torch.sum(g * g))
+                loss = float(out.loss.detach())
+                metrics = dict(loss=loss, reg_loss=float(reg_loss.detach()),
+                               grad_squared=g2,
+                               unitary_scale=float(
+                                   out.unitary_scale.detach()))
             converged = (loss < conv.conv_target or g2 < conv.min_grad
                          or s.iteration >= conv.max_iterations)
-            metrics = dict(loss=loss, reg_loss=float(reg_loss.detach()),
-                           grad_squared=g2,
-                           unitary_scale=float(out.unitary_scale.detach()))
             if converged:
                 s = s._replace(done=True, **metrics)
                 break
-            s = s._replace(**_adam_step(s, g, factor), **metrics)
+            with span("qoc.step.update"):
+                s = s._replace(**_adam_step(s, g, factor), **metrics)
         return s
 
     return run_segment

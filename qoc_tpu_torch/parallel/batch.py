@@ -45,6 +45,7 @@ from ..optim.adam import (BatchAdamState, batched_adam_update, decay_factor,
                           init_batch_adam)
 from ..optim.convergence import ConvergenceSettings
 from ..routing import announce, fused_fallback_reasons
+from ..utils.profiling import span
 from .chain_batch import make_pallas_batched_loss, pallas_batch_supported
 from .cols_batch import make_xla_batched_loss, xla_cols_supported
 from .mega_batch import batched_mega_supported, make_mega_batched_runner
@@ -252,12 +253,18 @@ def _make_per_iteration_backend(problem, conv, reg_coeffs, gradient_mode,
         """Metrics at the current iterate, then the predicates, then the
         masked update (qoc_tpu/parallel/batch.py:250-268)."""
         s = state
-        while s.iteration < int(stop_at) and not bool(torch.all(s.done)):
-            loss, reg_loss, g2, grads = batch_metrics(s.u_base, mats_b)
-            converged = ((loss < conv.conv_target) | (g2 < conv.min_grad)
-                         | (s.iteration >= conv.max_iterations) | s.done)
-            u, opt = batched_adam_update(s.u_base, s.opt_state, grads,
-                                         converged, factor)
+        while s.iteration < int(stop_at):
+            with span("qoc.step.read"):
+                if bool(torch.all(s.done)):
+                    break
+            with span("qoc.step.grad"):
+                loss, reg_loss, g2, grads = batch_metrics(s.u_base, mats_b)
+            with span("qoc.step.update"):
+                converged = ((loss < conv.conv_target)
+                             | (g2 < conv.min_grad)
+                             | (s.iteration >= conv.max_iterations) | s.done)
+                u, opt = batched_adam_update(s.u_base, s.opt_state, grads,
+                                             converged, factor)
             s = BatchState(u.detach(), opt, s.iteration + 1, loss.detach(),
                            reg_loss.detach(), g2.detach(), converged)
         return s
@@ -288,72 +295,83 @@ def batched_grape_adam(problem, n_seeds: int,
         swept terms as fixed operator channels with constant per-seed
         weights, on the fused kernels or xla-cols.
     """
-    validate_reg_coeffs(reg_coeffs, state_num=problem.state_num)
-    conv = ConvergenceSettings.from_dict(convergence)
-    device = entry_device(device)
-    sweep = mats_batch is not None
-    if sweep and extra_channels is not None:
-        raise ValueError("pass either mats_batch or extra_channels, not both")
-    extra_mats = extra_w = None
-    if extra_channels is not None:
-        # extra channels ride the fused kernels and the column-batched
-        # chain (the vmapped backend has no constant-channel operand)
-        extra_mats, extra_w = extra_channels
-        if backend == "auto":
-            if batched_mega_supported(problem, reg_coeffs):
-                backend = "mega"
-            elif pallas_batch_supported(problem, reg_coeffs):
-                backend = "pallas"
-            elif xla_cols_supported(problem, reg_coeffs):
-                backend = "xla-cols"
-            else:
-                raise ValueError(
-                    "extra_channels need a fused or column-batched "
-                    "backend; this problem/cost combination supports none")
-    init_state, run_segment = make_batched_runner(
-        problem, conv, reg_coeffs=reg_coeffs, gradient_mode=gradient_mode,
-        engine=engine, sweep_mats=sweep, mesh=mesh, backend=backend,
-        extra_channel_mats=extra_mats, device=device)
-    u_bases = init_seeds(problem, n_seeds,
-                         torch.Generator().manual_seed(int(seed)), device)
-    if sweep:
-        mats_b = torch.as_tensor(np.asarray(mats_batch, dtype=np.float32),
-                                 device=device)
-    elif extra_w is not None:
-        mats_b = torch.as_tensor(np.asarray(extra_w, dtype=np.float32),
-                                 device=device)
-    else:
-        mats_b = None
+    with span("qoc.batch.front_end"):
+        validate_reg_coeffs(reg_coeffs, state_num=problem.state_num)
+        conv = ConvergenceSettings.from_dict(convergence)
+        device = entry_device(device)
+        sweep = mats_batch is not None
+        if sweep and extra_channels is not None:
+            raise ValueError(
+                "pass either mats_batch or extra_channels, not both")
+        extra_mats = extra_w = None
+        if extra_channels is not None:
+            # extra channels ride the fused kernels and the column-batched
+            # chain (the vmapped backend has no constant-channel operand)
+            extra_mats, extra_w = extra_channels
+            if backend == "auto":
+                if batched_mega_supported(problem, reg_coeffs):
+                    backend = "mega"
+                elif pallas_batch_supported(problem, reg_coeffs):
+                    backend = "pallas"
+                elif xla_cols_supported(problem, reg_coeffs):
+                    backend = "xla-cols"
+                else:
+                    raise ValueError(
+                        "extra_channels need a fused or column-batched "
+                        "backend; this problem/cost combination supports none")
+        init_state, run_segment = make_batched_runner(
+            problem, conv, reg_coeffs=reg_coeffs, gradient_mode=gradient_mode,
+            engine=engine, sweep_mats=sweep, mesh=mesh, backend=backend,
+            extra_channel_mats=extra_mats, device=device)
+        u_bases = init_seeds(problem, n_seeds,
+                             torch.Generator().manual_seed(int(seed)), device)
+        if sweep:
+            mats_b = torch.as_tensor(np.asarray(mats_batch, dtype=np.float32),
+                                     device=device)
+        elif extra_w is not None:
+            mats_b = torch.as_tensor(np.asarray(extra_w, dtype=np.float32),
+                                     device=device)
+        else:
+            mats_b = None
 
-    def whole(x):
-        """The global array of a per-seed field."""
-        return (x if mesh is None else gather(x, mesh)).cpu().numpy()
+        def whole(x):
+            """The global array of a per-seed field."""
+            return (x if mesh is None else gather(x, mesh)).cpu().numpy()
 
-    state = init_state(u_bases)
-    while True:
-        stop_at = min(state.iteration + conv.update_step,
-                      conv.max_iterations + 1)
-        state = run_segment(state, stop_at, mats_b)
-        if progress is not None:
-            progress(state.iteration, whole(state.loss), whole(state.done))
-        all_done = (bool(torch.all(state.done)) if mesh is None
-                    else state.all_done)
-        if all_done or state.iteration > conv.max_iterations:
-            break
+        state = init_state(u_bases)
+    # the loop's span holds the host's moments between the segments' and
+    # the boundaries' spans, as in ``Grape``
+    with span("qoc.batch.loop"):
+        while True:
+            stop_at = min(state.iteration + conv.update_step,
+                          conv.max_iterations + 1)
+            with span("qoc.batch.segment"):
+                state = run_segment(state, stop_at, mats_b)
+                # the first read of the segment's results: it waits for the
+                # card (kernel 6 returns at its launch)
+                all_done = (bool(torch.all(state.done)) if mesh is None
+                            else state.all_done)
+            with span("qoc.batch.boundary"):
+                if progress is not None:
+                    progress(state.iteration, whole(state.loss),
+                             whole(state.done))
+            if all_done or state.iteration > conv.max_iterations:
+                break
 
-    losses = whole(state.loss)
-    best = int(np.argmin(losses))
-    u_base = whole(state.u_base)
-    max_amp = np.asarray(problem.ops_max_amp)[None, :, None]
-    uks_all = max_amp * np.sin(u_base)
-    return {
-        "losses": losses,
-        "reg_losses": whole(state.reg_loss),
-        "iterations": int(state.iteration),
-        "u_base": u_base,
-        "uks": uks_all,
-        "best_seed": best,
-        "best_uks": uks_all[best],
-        "best_loss": float(losses[best]),
-        "converged": whole(state.done),
-    }
+    with span("qoc.batch.readout"):
+        losses = whole(state.loss)
+        best = int(np.argmin(losses))
+        u_base = whole(state.u_base)
+        max_amp = np.asarray(problem.ops_max_amp)[None, :, None]
+        uks_all = max_amp * np.sin(u_base)
+        return {
+            "losses": losses,
+            "reg_losses": whole(state.reg_loss),
+            "iterations": int(state.iteration),
+            "u_base": u_base,
+            "uks": uks_all,
+            "best_seed": best,
+            "best_uks": uks_all[best],
+            "best_loss": float(losses[best]),
+            "converged": whole(state.done),
+        }

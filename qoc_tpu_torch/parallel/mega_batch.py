@@ -40,6 +40,7 @@ from ..ops import _cuda
 from ..ops.mega import (_MEGA_FORB_KEYS, bandpass_angles,
                         forbidden_static, speed_up_c0)
 from ..optim.adam import B1, B2, EPS, decay_factor
+from ..utils.profiling import span
 from .cols_batch import chain_inputs, chain_order, make_xla_batched_loss
 from .mesh import gather, local_shard
 
@@ -296,20 +297,22 @@ def make_mega_batched_runner(problem, conv, extra_channel_mats=None,
             return mega_batch_segment_reference(
                 batched_loss, state, int(n), V=V, extra_weights=ew,
                 **statics)
-        C = state.u_cols.shape[2]
-        if C not in scratch:
-            scratch[C] = (
-                _cuda.mega_batch_scratch(M, T, Kc, C, V, device),
-                None if costs is None else _cuda.mega_batch_costs_scratch(
-                    T, Kc, C, V, costs.dftc.shape[1], device))
-        u, m, v = (x.clone() for x in (state.u_cols, state.m_cols,
-                                       state.v_cols))
-        itc, done = state.it_cols.clone(), state.done_cols.clone()
-        stats = _cuda.mega_batch_segment(
-            mats, maxamp, psi0, tgt, column_extra_weights(extra_weights, C),
-            u, m, v, itc, done, order=order, scaling=scaling,
-            n_iters=int(n), adam=adam, scratch=scratch[C][0], costs=costs,
-            cost_scratch=scratch[C][1], clocks=clocks)
+        with span("qoc.mega_batch.prepare"):
+            C = state.u_cols.shape[2]
+            if C not in scratch:
+                scratch[C] = (
+                    _cuda.mega_batch_scratch(M, T, Kc, C, V, device),
+                    None if costs is None else _cuda.mega_batch_costs_scratch(
+                        T, Kc, C, V, costs.dftc.shape[1], device))
+            u, m, v = (x.clone() for x in (state.u_cols, state.m_cols,
+                                           state.v_cols))
+            itc, done = state.it_cols.clone(), state.done_cols.clone()
+            stats = _cuda.mega_batch_segment(
+                mats, maxamp, psi0, tgt,
+                column_extra_weights(extra_weights, C), u, m, v, itc, done,
+                order=order, scaling=scaling, n_iters=int(n), adam=adam,
+                scratch=scratch[C][0], costs=costs,
+                cost_scratch=scratch[C][1], clocks=clocks)
         return MegaBatchState(
             u_cols=u, m_cols=m, v_cols=v, it_cols=itc, done_cols=done,
             iteration=state.iteration + int(n), losses=stats[0, ::V],

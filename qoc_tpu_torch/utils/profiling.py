@@ -8,11 +8,24 @@ callable with the card synchronised, and ``memory_stats`` reads the
 device allocator's statistics.  ``kernel_events`` reads the device
 kernels back from a trace, and ``card`` names the card a measurement ran
 on.
+
+``span(name)`` marks a region of the program in whatever
+``torch.profiler`` session is recording: the entries, their segment
+loops, the per-iteration runners and the fused kernels' launch paths
+enter one at each layer boundary, named ``qoc.<layer>.<what>``.  A span
+is a ``record_function`` range, so it lands in the profiler's trace (the
+Chrome trace ``trace`` writes, or the events a caller reads from the
+session) on the same clock as the card's kernels, and nests inside the
+spans around it on the thread that runs the solve.  With no session
+recording, a span costs one check of the profiler's state.  Spans stay
+in the profiler's memory: the program writes nothing of its own.
+``spanned(name)`` is the same span around each call of a function.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -20,6 +33,28 @@ import time
 from typing import Callable, Optional
 
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that records ``name`` as a host range in the
+    ``torch.profiler`` session recording now, or does nothing (one shared
+    ``nullcontext``) when none is."""
+    if torch.autograd._profiler_enabled():
+        return torch.autograd.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def spanned(name: str):
+    """A decorator that runs the function inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
 
 
 @contextlib.contextmanager

@@ -19,6 +19,10 @@ TPU, GPU = os.path.join(REPO, "tests_tpu"), os.path.join(REPO, "tests_gpu")
 TPU_FILES = ("test_kernels_on_tpu.py", "test_mega_on_tpu.py",
              "test_grape_on_tpu.py")
 N_TESTS = 16
+# lane tests with no tests_tpu counterpart (qoc_tpu records no spans);
+# each skips off the card, the CPU switch included
+CARD_ONLY = {("test_spans_on_gpu.py",
+              "test_launch_spans_share_the_card_clock_on_gpu")}
 # seconds for the lane on the CPU; a run that takes longer fails
 LANE_TIMEOUT = 90
 
@@ -60,7 +64,18 @@ def test_every_tpu_test_has_a_gpu_counterpart():
             for f, n in PAIRS}
     got = {(f, n) for f in os.listdir(GPU) if f.startswith("test_")
            for n in _tests(os.path.join(GPU, f))}
-    assert got == want
+    assert got == want | CARD_ONLY
+
+
+def test_chip_smoke_counts_every_lane_test():
+    """chip_smoke.py's group 13b runs the lane on the card and wants
+    exactly LANE_TESTS cases: the counterparts and the card-only tests."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    lane_tests, = [ast.literal_eval(n.value) for n in tree.body
+                   if isinstance(n, ast.Assign)
+                   and [t.id for t in n.targets] == ["LANE_TESTS"]]
+    assert lane_tests == N_TESTS + len(CARD_ONLY)
 
 
 @pytest.mark.parametrize("tpu_file,name", PAIRS,
@@ -88,10 +103,11 @@ def test_lane_passes_on_the_cpu():
     out = _lane(QOC_TPU_TORCH_TEST_DEVICE="cpu")
     assert out.returncode == 0, out.stdout + out.stderr
     assert f"{N_TESTS} passed" in out.stdout, out.stdout
+    assert f"{len(CARD_ONLY)} skipped" in out.stdout, out.stdout
 
 
 def test_lane_skips_without_a_card():
     out = _lane(CUDA_VISIBLE_DEVICES="")
     assert out.returncode == 0, out.stdout + out.stderr
-    assert f"{N_TESTS} skipped" in out.stdout, out.stdout
+    assert f"{N_TESTS + len(CARD_ONLY)} skipped" in out.stdout, out.stdout
     assert "needs an NVIDIA card" in out.stdout, out.stdout
