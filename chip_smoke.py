@@ -144,8 +144,9 @@ Phases (each prints one line with its numbers; any failed check raises):
      same), 1 - loss within the run's bar of its float64 readout; 13b
      ``python -m pytest tests_gpu`` (the on-card lane, tests_tpu's
      counterpart: kernels 1-7 against float64 host oracles and the
-     per-iteration engines, and the card-only test of the launch spans
-     on the profiler's clock) in a process of its own: 17 tests pass, the
+     per-iteration engines, and the card-only tests of the launch spans
+     on the profiler's clock and of the float64 readout on the card) in a
+     process of its own: 20 tests pass, the
      only skip allowed the h5py one; 13c tools/torch_scaling_evidence.py
      ``--dispatch --collectives 1 --weak 2 --dryrun 2``: kernel 6's
      dispatch cost, its split, and the efficiency at update_step 100 (at
@@ -2865,10 +2866,11 @@ EXAMPLE_RUNS = [
      GAP_CEILING),
     ("04_transmon_cavity", ("expm_forward",), "pscan", EXAMPLE04_ITERATIONS,
      5e-5)]
-# 13b: tests_gpu's tests (the 16 counterparts of tests_tpu's and the one
-# with no counterpart, test_spans_on_gpu.py), and the one skip allowed (the
-# card's machine has no h5py; resume on the card is phase 9b's)
-LANE_TESTS = 17
+# 13b: tests_gpu's tests (the 16 counterparts of tests_tpu's and the four
+# cases with no counterpart, test_spans_on_gpu.py's and
+# test_fidelity_f64_on_gpu.py's), and the one skip allowed (the card's
+# machine has no h5py; resume on the card is phase 9b's)
+LANE_TESTS = 20
 LANE_SKIP = "test_grape_save_resume_roundtrip_on_gpu"
 # 13c: tools/torch_scaling_evidence.py's modes on the card
 SCALING_ARGV = ["--dispatch", "--collectives", "1", "--weak", "2",

@@ -444,7 +444,11 @@ def Grape(
                       else out.inter_vecs.cpu().numpy())
         uks = _analysis.uks_from_base(problem, u_base)
         with span("qoc.grape.fidelity_f64"):
-            fid64 = _analysis.fidelity_f64(problem, uks)
+            # on the card the readout runs there as batched complex128
+            # matrices; on the CPU, the host loop
+            fid64 = _analysis.fidelity_f64(
+                problem, uks,
+                device=device if device.type == "cuda" else None)
         if save:
             _analysis.append_metrics(
                 file_path, error=loss, reg_error=reg_loss, uks=uks,

@@ -19,10 +19,17 @@ TPU, GPU = os.path.join(REPO, "tests_tpu"), os.path.join(REPO, "tests_gpu")
 TPU_FILES = ("test_kernels_on_tpu.py", "test_mega_on_tpu.py",
              "test_grape_on_tpu.py")
 N_TESTS = 16
-# lane tests with no tests_tpu counterpart (qoc_tpu records no spans);
-# each skips off the card, the CPU switch included
+# lane tests with no tests_tpu counterpart (qoc_tpu records no spans and
+# reads its float64 fidelity on the host only); each skips off the card,
+# the CPU switch included
 CARD_ONLY = {("test_spans_on_gpu.py",
-              "test_launch_spans_share_the_card_clock_on_gpu")}
+              "test_launch_spans_share_the_card_clock_on_gpu"),
+             ("test_fidelity_f64_on_gpu.py",
+              "test_fidelity_readout_matches_the_host_loop_on_gpu"),
+             ("test_fidelity_f64_on_gpu.py",
+              "test_grape_reads_its_fidelity_on_the_card_on_gpu")}
+# the cases pytest counts for them (the readout's test has two)
+CARD_ONLY_CASES = 4
 # seconds for the lane on the CPU; a run that takes longer fails
 LANE_TIMEOUT = 90
 
@@ -75,7 +82,7 @@ def test_chip_smoke_counts_every_lane_test():
     lane_tests, = [ast.literal_eval(n.value) for n in tree.body
                    if isinstance(n, ast.Assign)
                    and [t.id for t in n.targets] == ["LANE_TESTS"]]
-    assert lane_tests == N_TESTS + len(CARD_ONLY)
+    assert lane_tests == N_TESTS + CARD_ONLY_CASES
 
 
 @pytest.mark.parametrize("tpu_file,name", PAIRS,
@@ -103,11 +110,11 @@ def test_lane_passes_on_the_cpu():
     out = _lane(QOC_TPU_TORCH_TEST_DEVICE="cpu")
     assert out.returncode == 0, out.stdout + out.stderr
     assert f"{N_TESTS} passed" in out.stdout, out.stdout
-    assert f"{len(CARD_ONLY)} skipped" in out.stdout, out.stdout
+    assert f"{CARD_ONLY_CASES} skipped" in out.stdout, out.stdout
 
 
 def test_lane_skips_without_a_card():
     out = _lane(CUDA_VISIBLE_DEVICES="")
     assert out.returncode == 0, out.stdout + out.stderr
-    assert f"{N_TESTS + len(CARD_ONLY)} skipped" in out.stdout, out.stdout
+    assert f"{N_TESTS + CARD_ONLY_CASES} skipped" in out.stdout, out.stdout
     assert "needs an NVIDIA card" in out.stdout, out.stdout

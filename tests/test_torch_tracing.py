@@ -3,8 +3,9 @@ context with no profiler and a host range under one; ``Grape`` and
 ``batched_grape_adam`` record their front end, segments, boundaries and
 readout (and the per-iteration runners their steps) in the order and
 nesting the benchmark's readers rely on; the plain versions of the fused
-kernels record no launch span; and a solve under the profiler gives the
-bits of one without it."""
+kernels record no launch span; the batched float64 readout records its
+span once a call; and a solve under the profiler gives the bits of one
+without it."""
 
 import contextlib
 
@@ -15,6 +16,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import qoc_tpu_torch as qt
 from qoc_tpu_torch.parallel.batch import batched_grape_adam
+from qoc_tpu_torch.utils.analysis import fidelity_f64, uks_from_base
 from qoc_tpu_torch.utils.profiling import span, spanned
 
 torch.set_num_threads(1)
@@ -151,6 +153,25 @@ def test_grape_records_its_spans_in_order(engine):
         # launch path
         assert not any(steps.values())
     assert not _named(spans, "qoc.mega.prepare")
+
+
+def _fidelity_readout(device):
+    args, kwargs = _pi_args()
+    problem = qt.ControlProblem.build(*args, **kwargs)
+    return fidelity_f64(problem, uks_from_base(problem, problem.u0_base),
+                        device=device)
+
+
+@pytest.mark.parametrize("call,n", [
+    (lambda: _fidelity_readout("cpu"), 1),
+    (lambda: _fidelity_readout(None), 0),
+    (lambda: _grape("scan"), 0)],
+    ids=["batched", "host_loop", "grape_cpu"])
+def test_the_batched_fidelity_readout_records_one_span(call, n):
+    """The batched float64 readout records its span once a call; the host
+    loop, which ``Grape`` keeps off the card, records none."""
+    _, spans = _traced(call)
+    assert len(_named(spans, "qoc.analysis.fidelity_f64_card")) == n
 
 
 @pytest.mark.parametrize("backend", ["xla", "mega"])
