@@ -20,7 +20,10 @@ in for the program's:
   learning rate's decay or the freezing at the loss target left out,
   faults inside a segment that the check has to catch.
 
-One JSON line a seed.  The benchmark's own runs do not run this.
+One JSON line a seed.  The benchmark's own runs do not run this.  A cell
+on more than one card runs one rank a card, as ``run.py`` does
+(``benchmark/ranks.py``): every rank makes the program's calls, rank 0
+alone the reference's and the lines.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import argparse
 import gc
 import json
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -39,12 +43,12 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from benchmark import check as chk  # noqa: E402
-from benchmark import harness  # noqa: E402
+from benchmark import harness, ranks  # noqa: E402
 from benchmark.reference import grape as ref  # noqa: E402
 
 
-def readings(cell, seed: int, seconds: float, device) -> dict:
-    gen = cell.generator(device, seed)
+def readings(cell, seed: int, seconds: float, device, rk=None) -> dict:
+    gen = cell.generator(device, seed, rk)
     swept = getattr(gen, "extra", None) is not None
     gen.prepare()
     answers = None
@@ -53,6 +57,8 @@ def readings(cell, seed: int, seconds: float, device) -> dict:
         answers = gen.sampled_answers()
     prog = gen.check
     del gen
+    if rk is not None and not rk.lead:
+        return None
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -102,12 +108,20 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", required=True)
     ap.add_argument("--seconds", type=float, default=5.0)
     ap.add_argument("--device", default="cuda")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
-    cell = harness.load_cell(args.workload)
     device = torch.device(args.device)
+    got = ranks.launch(args.workload, str(Path(__file__).resolve()), argv,
+                       device.type, time.perf_counter())
+    cell = harness.load_cell(args.workload)
+    if got is not None:
+        device = ranks.device_of(got)
+    rk = ranks.start(device)
     for s in args.seeds.split(","):
-        print(json.dumps(readings(cell, int(s), args.seconds, device)),
-              flush=True)
+        out = readings(cell, int(s), args.seconds, device, rk)
+        if rk.lead:
+            print(json.dumps(out), flush=True)
+    rk.finish()
     return 0
 
 

@@ -11,7 +11,9 @@ one more.
 Traffic keys: ``generator`` ("grape_loop"), ``check_answers`` (how many
 of the window's solves the reference checks, drawn from the seed),
 ``trace_seconds`` (the traced window's length), and optionally
-``convergence`` (overrides of the configuration's Adam settings).
+``convergence`` (overrides of the configuration's Adam settings).  The
+system's ``grape_kwargs``, where it has them (a dressed basis, say), go
+to ``Grape`` untouched.
 """
 
 from __future__ import annotations
@@ -63,7 +65,8 @@ class Generator:
                     reg_coeffs=s["reg_coeffs"] or None, maxA=s["maxA"],
                     initial_guess=guess, method="Adam",
                     state_transfer=s["state_transfer"], save=False,
-                    show_plots=False, device=self.device)
+                    show_plots=False, device=self.device,
+                    **(s.get("grape_kwargs") or {}))
 
     def prepare(self) -> None:
         """The warm-up: one solve at the cell's shapes through the same

@@ -10,8 +10,9 @@ comparison and the settings of its check call (``limits/<cell>.json``).
 Each metric is read by ``metrics/<name>.py``, or, where no such file
 exists, by the file of the name with its last dotted part taken off
 (``device_idle_pct.single`` and ``device_idle_pct.batch`` share
-``device_idle_pct.py``).  Adding any of these is adding files and
-entries.
+``device_idle_pct.py``).  A system file may also return ``grape_kwargs``,
+further keywords of the program's entries.  Adding any of these is
+adding files and entries.
 """
 
 from __future__ import annotations
@@ -70,12 +71,17 @@ class Cell:
         return self.conv(max_iterations=steps,
                          **self.limits.get("check_convergence", {}))
 
-    def generator(self, device, seed: int):
-        """The traffic's generator for a run of this cell."""
+    def generator(self, device, seed: int, ranks=None):
+        """The traffic's generator for a run of this cell; ``ranks``: this
+        process's rank of a cell on more than one card
+        (``benchmark/ranks.py``), which only a generator that takes a
+        mesh accepts."""
         name = self.traffic["generator"]
         mod = load_module(HERE / "generators" / f"{name}.py",
                           "benchmark_generator_" + name)
-        return mod.Generator(self, device, seed)
+        if ranks is None or ranks.world == 1:
+            return mod.Generator(self, device, seed)
+        return mod.Generator(self, device, seed, ranks=ranks)
 
     def metrics(self, trace: bool) -> list:
         """The metrics this cell reports: the end-to-end ones with

@@ -18,6 +18,13 @@ no derivative is approximated.
 ``TF32`` is the control, the same algorithm in complex64 whose every
 matrix product first rounds its operands to TF32 (10 mantissa bits, as
 the tensor cores do) and accumulates in float32.
+
+The costs are written from the upstream formulas
+(``regularization_functions.py`` of the GRAPE package the configurations
+come from), each cited where it is defined, with their gradients by hand:
+``dwdt``, ``envelope`` and ``bandpass`` act on the pulses, the forbidden
+levels and ``speed_up`` on the trajectory, whose derivative enters the
+co-states.
 """
 
 from __future__ import annotations
@@ -161,27 +168,71 @@ def _pad_diff(w: torch.Tensor, dt: float):
     return (wp[..., 1:] - wp[..., :-1]) / dt
 
 
-def _pulse_costs(u: torch.Tensor, prob: Problem, want_grad: bool):
+def gauss_mask(steps: int) -> np.ndarray:
+    """The envelope cost's mask [T]: one minus a Gaussian over
+    linspace(-2, 2, steps), clipped at 0, plus 0.01 (upstream
+    ``system_parameters.py:253-266``)."""
+    gauss = np.exp(-np.linspace(-2.0, 2.0, steps) ** 2 / 2.0)
+    shape = 1.0 - gauss
+    return shape * (shape > 0) + 0.01
+
+
+def band_bins(band, total_time: float, steps: int) -> np.ndarray:
+    """The bandpass cost's bins [T] (1 where counted): [0, b0) and
+    [b1, steps / 2), with b = int(band * total_time) (upstream
+    ``regularization_functions.py:47-67``)."""
+    b0, b1 = (np.asarray(band, dtype=float) * float(total_time)).astype(int)
+    m = np.zeros(steps)
+    m[0:b0] = 1.0
+    m[b1:int(steps / 2)] = 1.0
+    return m
+
+
+def _pulse_costs(u: torch.Tensor, prob: Problem, prec: Precision,
+                 want_grad: bool):
     """The costs on the pulses alone, and their gradient in u.
-    u: [S, K, T] real."""
+    u: [S, K, T] real.  Each is coeff / steps times its sum, on the
+    weights w = sin(u)."""
     rc, T, dt = prob.reg_coeffs, prob.steps, prob.dt
     w, cosu = torch.sin(u), torch.cos(u)
     cost = torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
     gw = torch.zeros_like(u)
     if "dwdt" in rc:
+        # l2 of the first differences of w padded with two zeros at each
+        # end (regularization_functions.py:28-35)
         a = rc["dwdt"] / T
         d = _pad_diff(w, dt)                       # [S, K, T+3]
         cost = cost + a * 0.5 * (d * d).sum((1, 2))
         # d[j] = (wp[j+1] - wp[j]) / dt, w[i] = wp[i+2]
         gw = gw + a / dt * (d[..., 1:T + 1] - d[..., 2:T + 2])
+    if "envelope" in rc:
+        # l2 of w outside a Gaussian envelope
+        # (regularization_functions.py:21-25)
+        a = rc["envelope"] / T
+        g = torch.as_tensor(gauss_mask(T), dtype=u.dtype, device=u.device)
+        cost = cost + a * 0.5 * ((g * w) ** 2).sum((1, 2))
+        gw = gw + a * g * g * w
+    if "bandpass" in rc:
+        # the sum of |FFT(w)| over the bins outside the band
+        # (regularization_functions.py:47-67); d|F_k|/dw_t is
+        # Re(conj(F_k) e^(-2 pi i k t / T)) / |F_k|, so the gradient is T
+        # times the real part of the inverse FFT of the bins' F / |F|
+        a = rc["bandpass"] / T
+        m = torch.as_tensor(band_bins(rc["band"], prob.total_time, T),
+                            dtype=u.dtype, device=u.device)
+        F = torch.fft.fft(w.to(prec.complex_dtype), dim=-1)
+        mag = F.abs()
+        cost = cost + a * (mag * m).sum((1, 2))
+        phase = torch.where(mag > 0, F / torch.where(mag > 0, mag, 1.0), 0)
+        gw = gw + a * T * torch.fft.ifft(m * phase, dim=-1).real
     if not want_grad:
         return cost, None
     return cost, gw * cosu
 
 
-# the costs the configurations use; a cell that needs another brings it
-# here with its check
-KNOWN_COSTS = ("dwdt", "forbidden_coeff_list", "states_forbidden_list")
+# the costs the configurations use, and their parameters
+KNOWN_COSTS = ("dwdt", "envelope", "bandpass", "band", "speed_up",
+               "forbidden_coeff_list", "states_forbidden_list")
 
 
 def _forbidden_levels(rc: dict):
@@ -189,6 +240,34 @@ def _forbidden_levels(rc: dict):
     if coeffs is None:
         return []
     return list(zip(coeffs, rc["states_forbidden_list"]))
+
+
+def propagate(prob: Problem, u: torch.Tensor,
+              extra_w: Optional[torch.Tensor] = None,
+              prec: Precision = FLOAT64):
+    """(A, P, traj): each step's -i dt H [S, T, N, N] and its propagator,
+    and the trajectory [S, T+1, N, V] from the initial vectors, of the
+    pulses ``u`` [S, K, T] in the base domain with the extra operators
+    weighted by ``extra_w`` [S, E]."""
+    dev = u.device
+    cdt, rdt = prec.complex_dtype, prec.real_dtype
+    S = u.shape[0]
+    H0 = torch.as_tensor(prob.H0, dtype=cdt, device=dev)
+    Hops = torch.as_tensor(prob.Hops, dtype=cdt, device=dev)
+    maxA = torch.as_tensor(prob.maxA, dtype=rdt, device=dev)
+    psi0 = torch.as_tensor(prob.psi0, dtype=cdt, device=dev)
+    theta = maxA[None, :, None] * torch.sin(u.to(rdt))        # [S, K, T]
+    H = H0 + torch.einsum("skt,kij->stij", theta.to(cdt), Hops)
+    if prob.extra_ops is not None:
+        Ex = torch.as_tensor(prob.extra_ops, dtype=cdt, device=dev)
+        H = H + torch.einsum("se,eij->sij", extra_w.to(device=dev, dtype=cdt),
+                             Ex)[:, None]
+    A = (-1j * prob.dt) * H                                  # [S, T, N, N]
+    P = expm(A, prec)
+    psi = [psi0.expand(S, -1, -1)]
+    for t in range(prob.steps):
+        psi.append(mm(P[:, t], psi[-1], prec))
+    return A, P, torch.stack(psi, dim=1)
 
 
 def loss_and_grad(prob: Problem, u: torch.Tensor,
@@ -207,33 +286,30 @@ def loss_and_grad(prob: Problem, u: torch.Tensor,
     u = u.to(rdt)
     S, K, T = u.shape
     dt = prob.dt
-    H0 = torch.as_tensor(prob.H0, dtype=cdt, device=dev)
     Hops = torch.as_tensor(prob.Hops, dtype=cdt, device=dev)
     maxA = torch.as_tensor(prob.maxA, dtype=rdt, device=dev)
-    psi0 = torch.as_tensor(prob.psi0, dtype=cdt, device=dev)
     tgt = torch.as_tensor(prob.targets, dtype=cdt, device=dev)
-    V = psi0.shape[1]
-    theta = maxA[None, :, None] * torch.sin(u)                # [S, K, T]
-    H = H0 + torch.einsum("skt,kij->stij", theta.to(cdt), Hops)
-    if prob.extra_ops is not None:
-        Ex = torch.as_tensor(prob.extra_ops, dtype=cdt, device=dev)
-        H = H + torch.einsum("se,eij->sij", extra_w.to(device=dev, dtype=cdt),
-                             Ex)[:, None]
-    A = (-1j * dt) * H                                       # [S, T, N, N]
-    P = expm(A, prec)
-    psi = [psi0.expand(S, -1, -1)]
-    for t in range(T):
-        psi.append(mm(P[:, t], psi[-1], prec))
-    traj = torch.stack(psi, dim=1)                           # [S, T+1, N, V]
+    V = tgt.shape[1]
+    A, P, traj = propagate(prob, u, extra_w, prec)
     overlap = (tgt.conj() * traj[:, -1]).sum((1, 2))         # [S]
     loss = 1.0 - (overlap.abs() ** 2) / (V * V)
     rc = prob.reg_coeffs
-    cost, g_pulse = _pulse_costs(u, prob, want_grad)
+    cost, g_pulse = _pulse_costs(u, prob, prec, want_grad)
     pops = traj.real ** 2 + traj.imag ** 2                   # [S, T+1, N, V]
     forb = _forbidden_levels(rc)
     for coeff, level in forb:
+        # l2 of each forbidden level's population over the trajectory
+        # (regularization_functions.py:71-85)
         a = coeff / prob.steps
         cost = cost + a * 0.5 * (pops[:, :, level] ** 2).sum((1, 2))
+    if "speed_up" in rc:
+        # the target overlap at every step, psi_0 included: coeff / steps
+        # times l2(T + 1 - sum_t |sum_v <target_v|psi_v(t)>|^2 / V^2)
+        # (regularization_functions.py:88-95)
+        a_su = rc["speed_up"] / prob.steps
+        ov_t = (tgt.conj() * traj).sum(-2).sum(-1)            # [S, T+1]
+        short = (T + 1) - (ov_t.abs() ** 2).sum(1) / (V * V)  # [S]
+        cost = cost + a_su * 0.5 * short ** 2
     reg = loss + cost
     if not want_grad:
         return loss, reg, None
@@ -244,6 +320,9 @@ def loss_and_grad(prob: Problem, u: torch.Tensor,
     for coeff, level in forb:
         a = coeff / prob.steps
         gam[:, :, level] += 2 * a * pops[:, :, level] * traj[:, :, level]
+    if "speed_up" in rc:
+        gam += ((-2.0 * a_su / (V * V)) * short[:, None, None, None]
+                * ov_t[:, :, None, None] * tgt)
     lam = gam[:, -1]
     gP = torch.empty_like(P)
     for t in range(T - 1, -1, -1):

@@ -44,9 +44,11 @@ def test_benchmark_json_keeps_the_contract():
         assert set(c["reduced"]) <= set(json.loads(
             (REPO / c["file"]).read_text())["reduced"]) | set(c["reduced"])
     pairs = set()
+    four = [w["name"] for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(cells) // 4)
     for w in BENCH["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and w["config"] in names
+        assert w["chips"] in (1, 4) and w["config"] in names
         assert (harness.HERE / "traffic" / f"{w['traffic']}.json").exists()
         assert len(w["why"]) <= 200
         assert (w["config"], w["traffic"]) not in pairs

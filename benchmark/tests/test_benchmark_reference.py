@@ -72,10 +72,16 @@ def _small_problem(rng, rc, extra=True):
 
 ALL_COSTS = {"dwdt": 0.01, "forbidden_coeff_list": [3.0, 2.0],
              "states_forbidden_list": [2, 3]}
+# one cost each, sized so that it moves the gradient as much as the loss;
+# the band's bins are [0, 2) and [4, 6) of the 12 steps of 3 time units
+ONE_COST = {"envelope": {"envelope": 0.5},
+            "bandpass": {"bandpass": 0.2, "band": [0.7, 1.4]},
+            "speed_up": {"speed_up": 0.05}}
+GRAD_CASES = {"fidelity": {}, "all_costs": ALL_COSTS, **ONE_COST}
 
 
-@pytest.mark.parametrize("rc", [{}, ALL_COSTS],
-                         ids=["fidelity", "all_costs"])
+@pytest.mark.parametrize("rc", list(GRAD_CASES.values()),
+                         ids=list(GRAD_CASES))
 def test_gradient_matches_finite_differences(rc):
     rng = np.random.default_rng(2)
     prob = _small_problem(rng, rc)
@@ -92,6 +98,45 @@ def test_gradient_matches_finite_differences(rc):
               ) / (2 * h)
         worst = max(worst, abs(float(fd - g[idx])))
     assert worst < 1e-7 * max(1.0, float(g.abs().max()))
+
+
+def _iso(x: np.ndarray) -> torch.Tensor:
+    """Complex vectors [..., N, V] in the port's real form [..., 2N, V]."""
+    return torch.as_tensor(np.concatenate([x.real, x.imag], axis=-2))
+
+
+@pytest.mark.parametrize("name", sorted(ONE_COST))
+def test_each_cost_is_the_ports_cost(name):
+    """The reference's value of each cost (reg_loss - loss) against the
+    port's ``models/costs.py`` at float64, on the same seeded pulses and
+    the reference's trajectory; the envelope's mask is the one the port's
+    problem builds (float32), and the reference's own mask matches it."""
+    from qoc_tpu_torch.models.costs import REGISTRY, CostContext
+    from qoc_tpu_torch.models.system import ControlProblem
+
+    rng = np.random.default_rng(5)
+    rc = ONE_COST[name]
+    prob = _small_problem(rng, rc, extra=False)
+    u = torch.as_tensor(rng.normal(size=(3, 2, 12)) * 0.5)
+    loss, reg, _ = R.loss_and_grad(prob, u, want_grad=False)
+    traj = R.propagate(prob, u)[2].numpy()
+    N, T = prob.H0.shape[0], prob.steps
+    cp = ControlProblem.build(prob.H0, list(prob.Hops), ["a", "b"],
+                              np.eye(N)[:, [1, 0, 2, 3]], prob.total_time,
+                              T, [0, 1], maxA=list(prob.maxA), seed=0)
+    mask = np.asarray(cp.one_minus_gauss, dtype=np.float64)
+    assert np.abs(mask - R.gauss_mask(T)[None]).max() < 1e-7
+    for s in range(len(u)):
+        ctx = CostContext(ops_weight=torch.sin(u[s]),
+                          inter_vecs=_iso(traj[s]),
+                          target_vecs=_iso(prob.targets), state_num=N,
+                          steps=T, dt=prob.dt, total_time=prob.total_time,
+                          one_minus_gauss=torch.as_tensor(mask),
+                          v_sorted_iso=None)
+        theirs = float(REGISTRY[name](ctx, rc))
+        mine = float(reg[s] - loss[s])
+        assert theirs > 1e-4
+        assert abs(mine - theirs) <= 1e-6 * theirs, (s, mine, theirs)
 
 
 def test_blocks_give_the_same_numbers():

@@ -21,6 +21,7 @@ SPAN_METRICS = {
     "launch_prep_us.batch": ["leakage.restarts"],
     "enqueue_ms.single": ["multimode.single"],
     "enqueue_ms.batch": ["multimode.sweep"],
+    "enqueue_ms.batch.x4": ["multimode.sweep_x4"],
 }
 
 
@@ -102,3 +103,32 @@ def test_the_span_metrics_keep_the_contract():
         assert harness.metric_path(name).exists()
         moved = [e for e in BENCH["end_to_end"] if e["name"] == m["moves"]]
         assert set(cells) <= set(moved[0]["workloads"])
+
+
+def test_the_allreduce_reader_takes_the_median_over_segments_and_ranks():
+    """Each rank keeps its all-reduce kernels that start inside its window
+    (not the gathers, the broadcast or the barrier before the window);
+    rank 0 takes the median of every rank's."""
+    reader = harness.load_module(harness.metric_path("allreduce_ms.batch"),
+                                 "m_allreduce")
+    ar = "ncclDevKernel_AllReduce_Sum_u64_RING_LL(ncclDevKernelArgsStorage)"
+    ctx = _window()
+    ctx.events += [Event(ar, "device", -3 * MS, -2 * MS),
+                   Event(ar, "device", 100 * MS, 102 * MS),
+                   Event(ar, "device", 500 * MS, 506 * MS),
+                   Event("ncclDevKernel_AllGather_RING_LL", "device",
+                         510 * MS, 530 * MS),
+                   Event("ncclDevKernel_Broadcast_RING_LL", "device",
+                         540 * MS, 560 * MS),
+                   Event(ar, "host", 700 * MS, 760 * MS)]
+    mine = reader.per_rank(ctx)
+    assert mine == pytest.approx([2.0, 6.0])
+    ctx.per_rank = [mine, [1.0, 3.0], [4.0], None]
+    assert reader.read(ctx) == pytest.approx(3.0)
+    ctx.per_rank = [[], None]
+    assert reader.read(ctx) is None
+    assert reader.per_rank(_synthetic()) == []
+    entry = {m["name"]: m for m in BENCH["per_layer"]}["allreduce_ms.batch"]
+    assert entry["workloads"] == ["multimode.sweep_x4"]
+    assert entry["layer"] == "batch layer" and entry["unit"] == "ms"
+    assert entry["moves"] == "seed_iters_per_s.x4"

@@ -41,6 +41,29 @@ def test_costs_by_hand():
     assert gate.per_seed(s)["flops"] == 832 + 72 + 24
 
 
+@pytest.mark.parametrize("cost,flops", [
+    # envelope 2*3*K*T; bandpass 2*5*K*T*log2(T); speed_up 2*8*M*V*(T+1)
+    ({"envelope": 0.1}, 12),
+    ({"bandpass": 0.1, "band": [0.1, 10.0]}, 20),
+    ({"speed_up": 0.1}, 192)], ids=["envelope", "bandpass", "speed_up"])
+def test_the_queued_costs_by_hand(cost, flops):
+    s = dict(SIZES, reg_coeffs=cost)
+    assert gate.per_seed(s)["flops"] == 832 + flops
+    assert state_transfer.per_seed(s)["flops"] == 576 + flops
+
+
+def test_bandpass_counts_log2_of_the_steps():
+    s = dict(SIZES, T=1000, reg_coeffs={"bandpass": 0.1, "band": [0, 1]})
+    bare = gate.per_seed(dict(s, reg_coeffs={}))["flops"]
+    assert gate.per_seed(s)["flops"] - bare == pytest.approx(
+        10 * 1000 * np.log2(1000))
+
+
+def test_an_unknown_cost_has_no_count():
+    with pytest.raises(NotImplementedError):
+        gate.per_seed(dict(SIZES, reg_coeffs={"d2wdt2": 0.1}))
+
+
 def test_column_batch_shares_the_generators():
     w = column_batch.per_iteration("gate", SIZES, 3)
     assert w == {"flops": 3 * 832, "bytes": 128 + 3 * 80}

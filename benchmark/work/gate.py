@@ -19,6 +19,8 @@ Bytes: the generators once (shared by a batch), and each seed's pulse
 and Adam moments read and written, with its initial and target columns.
 """
 
+import math
+
 
 def propagation(M, V, q, s):
     matrix = 2 * M ** 3 * ((q - 1) + s) + 2 * M ** 2 * V
@@ -27,19 +29,27 @@ def propagation(M, V, q, s):
 
 
 def cost_flops(sizes):
-    """The passes of the costs the configurations use: each forbidden
-    level's populations over the trajectory and the first differences of
-    the pulse (dwdt), forward and backward.  A cell that needs another
-    cost brings its count here."""
+    """The passes of the costs, forward and backward: each forbidden
+    level's populations over the trajectory; the first differences of the
+    pulse (dwdt); its product with the envelope's mask (envelope); two
+    FFTs of the K pulses, the transform and the gradient's inverse
+    (bandpass, 5 T log2 T each); the target overlap at every step of the
+    trajectory and its adjoint (speed_up)."""
     rc = sizes["reg_coeffs"]
-    T, K, V = sizes["T"], sizes["K"], sizes["V"]
+    T, K, V, M = sizes["T"], sizes["K"], sizes["V"], sizes["M"]
     unknown = set(rc) - {"forbidden_coeff_list", "states_forbidden_list",
-                         "dwdt"}
+                         "dwdt", "envelope", "bandpass", "band", "speed_up"}
     if unknown:
         raise NotImplementedError(f"no work count for {sorted(unknown)}")
     flops = 2 * 6 * len(rc.get("forbidden_coeff_list") or []) * V * (T + 1)
     if "dwdt" in rc:
         flops += 2 * 6 * K * T
+    if "envelope" in rc:
+        flops += 2 * 3 * K * T
+    if "bandpass" in rc:
+        flops += 2 * 5 * K * T * math.log2(T)
+    if "speed_up" in rc:
+        flops += 2 * 8 * M * V * (T + 1)
     return flops
 
 
