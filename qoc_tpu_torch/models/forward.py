@@ -6,7 +6,8 @@ of ``qoc_tpu.models.forward``, iso and complex representations).
 ``u_base [K, T]``: the analysis forward (``lean=False``: emits inter_vecs
 when ``use_inter_vecs``) and the lean optimization loss (intermediate
 states only when a selected cost reads them, ``INTER_VEC_COSTS``).  The
-regularized loss is ``loss + total_reg_cost(...)`` (``models.costs``).
+regularized loss is ``loss + total_reg_cost(...)`` (``models.costs``),
+enqueued inside the span ``qoc.costs``.
 
 On the unitary ``pscan`` engine the loss reads the final unitary only
 through final_vecs, so the full product (``final_state``) is an output
@@ -40,6 +41,7 @@ from ..ops.propagation import (
     state_transfer_chain,
     step_propagators,
 )
+from ..utils.profiling import span
 from .costs import CostContext, total_reg_cost
 from .system import ControlProblem
 
@@ -147,7 +149,8 @@ def make_forward(
             total_time=p.total_time,
             one_minus_gauss=tens["one_minus_gauss"],
             v_sorted_iso=tens.get("v_sorted_iso"))
-        reg_loss = loss + total_reg_cost(ctx, reg_coeffs)
+        with span("qoc.costs"):
+            reg_loss = loss + total_reg_cost(ctx, reg_coeffs)
         return ForwardOutput(loss, reg_loss, unitary_scale, final_state,
                              inter_vecs, ops_weight)
 
@@ -236,7 +239,8 @@ def _make_forward_complex(p, reg_coeffs, lean: bool, device):
             total_time=p.total_time,
             one_minus_gauss=tens["one_minus_gauss"],
             v_sorted_iso=tens.get("v_sorted_iso"))
-        reg_loss = loss + total_reg_cost(ctx, reg_coeffs)
+        with span("qoc.costs"):
+            reg_loss = loss + total_reg_cost(ctx, reg_coeffs)
         return ForwardOutput(loss, reg_loss, unitary_scale, final_state,
                              inter_vecs, ops_weight)
 

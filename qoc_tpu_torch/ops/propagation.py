@@ -40,6 +40,7 @@ from functools import partial
 import numpy as np
 import torch
 
+from ..utils.profiling import spanned
 from .expm import taylor_expm, taylor_expm_matvec, weighted_hamiltonians
 from .fused_expm import fused_expm_supported, fused_taylor_expm
 from .remat import recompute
@@ -252,6 +253,7 @@ def _pscan_run(mats, weights, psi0, order: int, reps: int):
     return pscan_sweep(Q, psi0, reps), A, Q
 
 
+@spanned("qoc.pscan.sweep")
 def pscan_sweep(Q, psi0, reps: int):
     """The forward sweep: psi <- Q_t psi, ``reps`` times per step, from
     psi0 [M, V]; the sub-step trajectory [T*reps + 1, M, V]."""
@@ -264,6 +266,7 @@ def pscan_sweep(Q, psi0, reps: int):
     return torch.stack(vecs)
 
 
+@spanned("qoc.pscan.reverse")
 def pscan_reverse_sweep(Q, g, reps: int):
     """The adjoint sweep over sub-steps i = T*reps-1 .. 0: lam_i = mu + g_i
     (the full cotangent of the state after sub-step i), then mu = Q_t^T
