@@ -60,10 +60,14 @@ Phases (each prints one line with its numbers; any failed check raises):
      of the 2M block matrix that its backward runs, with the autograd
      call beside it): its time and its distance from the float64 plain
      version (not a gate); 8b
-     pscan, associative and scan at config 4's iteration 0, and the pscan
-     iteration in parts; 8c ``Grape`` on the job,
-     ``engine="auto"`` (routed to pscan, kernel 7), 2000 of its 5000
-     iterations; 8d the same with ``engine="associative"`` (kernels 7 and
+     pscan, associative and scan at config 4's iteration 0, the pscan
+     iteration in parts, and a line a direction for the sweep kernels
+     (``csrc/pscan_sweep.cu``) at config 4's and config 5's shapes and at
+     M = 1024: device time a sweep and a sub-step against the plain loop's
+     device and wall time, launches (one a sweep), and the gap to a
+     float64 loop (at most four times the float32 loop's); 8c ``Grape`` on
+     the job, ``engine="auto"`` (routed to pscan, kernel 7, every sweep in
+     the sweep kernels), 2000 of its 5000 iterations; 8d the same with ``engine="associative"`` (kernels 7 and
      8), 20 iterations; 8e the engines under ``torch.func``: kernel 8's
      scratch on config 4 folded to T = 16000 (none), ``batched_grape_adam``
      on config 4 (backend "xla", 16 seeds, 3 iterations) with engine
@@ -145,8 +149,8 @@ Phases (each prints one line with its numbers; any failed check raises):
      ``python -m pytest tests_gpu`` (the on-card lane, tests_tpu's
      counterpart: kernels 1-7 against float64 host oracles and the
      per-iteration engines, and the card-only tests of the launch spans
-     on the profiler's clock and of the float64 readout on the card) in a
-     process of its own: 20 tests pass, the
+     on the profiler's clock, of the float64 readout on the card and of
+     the pscan sweep kernels) in a process of its own: 34 tests pass, the
      only skip allowed the h5py one; 13c tools/torch_scaling_evidence.py
      ``--dispatch --collectives 1 --weak 2 --dryrun 2``: kernel 6's
      dispatch cost, its split, and the efficiency at update_step 100 (at
@@ -175,6 +179,7 @@ import os
 import subprocess
 import sys
 import time
+from functools import partial
 from typing import Optional
 
 import numpy as np
@@ -1406,13 +1411,113 @@ def phase_engines(dev, job, p4) -> dict:
     whole = _timed_ms(lambda: _loss_and_grad(pscan_loss, u0), 5)
     parts["rest_ms"] = whole - sum(parts.values())
     parts["whole_ms"] = whole
+    sweeps = phase_sweeps(dev, Q, psi0, g)
     _line("phase8b", problem="transmon_cavity", M=2 * p4.state_num,
           T=p4.steps, K=p4.ops_len + 1, order=order,
           pscan_reg_loss=ref["reg"], pscan_ms_per_iteration=ref["ms"],
           pscan_parts=parts, **fields)
     return dict(parts=parts, pscan_ms=ref["ms"],
                 associative_ms=res["associative"]["ms"],
-                scan_ms=res["scan"]["ms"])
+                scan_ms=res["scan"]["ms"], sweeps=sweeps)
+
+
+def _device_busy_ms(fn, reps: int = 5) -> float:
+    """The device time of every kernel and copy ``fn`` runs, per call,
+    from ``torch.profiler``: what a loop of small launches keeps the card
+    busy, without the idle the host leaves between them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / reps
+
+
+def phase_sweeps(dev, Q, psi0, g) -> dict:
+    """8b, one line a direction: the sweep kernel (``csrc/pscan_sweep.cu``)
+    at config 4's Q, at config 5's shape (T = 200, M = 400, orthogonal
+    steps; both on chip) and at M = 1024 (T = 100, through L2), against
+    the plain loop on the same card: the kernel's device time a sweep and
+    a sub-step, the loop's device busy time and its wall time (the host
+    issues its launches), the bound (Q read once at 3.35 TB/s), the
+    launches a sweep (one), and the largest gap to a float64 run of the
+    loop, which must stay within four times the float32 loop's own."""
+    import torch
+
+    from qoc_tpu_torch.ops import _cuda
+    from qoc_tpu_torch.ops import propagation as prop
+
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    A = torch.randn((200, 400, 400), generator=gen, dtype=torch.float64)
+    Q5 = torch.linalg.matrix_exp(((A - A.mT) * 0.025).to(dev)).float()
+    psi5 = torch.randn((400, 1), generator=gen).to(dev)
+    g5 = torch.randn((201, 400, 1), generator=gen).to(dev)
+    # M = 1024: a product of two reflections a step (dense, orthogonal)
+    a, b = torch.randn((2, 100, 1024, 1), generator=gen,
+                       dtype=torch.float64).to(dev)
+    a, b = a / a.norm(dim=-2, keepdim=True), b / b.norm(dim=-2, keepdim=True)
+    eye = torch.eye(1024, dtype=torch.float64, device=dev)
+    Qw = ((eye - 2 * a @ a.mT) @ (eye - 2 * b @ b.mT)).float()
+    psiw = torch.randn((1024, 1), generator=gen).to(dev)
+    gw = torch.randn((101, 1024, 1), generator=gen).to(dev)
+    cases = {"config4": (Q, psi0, g), "config5": (Q5, psi5, g5),
+             "m1024": (Qw, psiw, gw)}
+    out = {}
+    failures = []
+    for direction in ("forward", "reverse"):
+        fields = {}
+        for case, (Qc, x, gc) in cases.items():
+            T, M = Qc.shape[0], Qc.shape[-1]
+            geo = _cuda.pscan_geometry(M, x.shape[-1], 1,
+                                       direction == "reverse")
+            kname = "pscan_%s%s_kernel" % (direction,
+                                           "_wide" if geo.wide else "")
+            if direction == "forward":
+                run = partial(prop.pscan_sweep, Qc, x, 1)
+                plain = partial(prop.pscan_sweep_plain, Qc, x, 1)
+                exact = partial(prop.pscan_sweep_plain, Qc.double(),
+                                x.double(), 1)
+            else:
+                run = partial(prop.pscan_reverse_sweep, Qc, gc, 1)
+                plain = partial(prop.pscan_reverse_plain, Qc, gc, 1)
+                exact = partial(prop.pscan_reverse_plain, Qc.double(),
+                                gc.double(), 1)
+            _cuda.reset_launch_counts()
+            got = run()
+            launches = _cuda.LAUNCHES["pscan_" + direction]
+            want, floor = exact(), plain()
+            if direction == "forward":
+                got, want, floor = (got,), (want,), (floor,)
+            err = max(_abs(a, b) for a, b in zip(got, want))
+            f32 = max(_abs(a, b) for a, b in zip(floor, want))
+            ms = device_ms(run, kname)
+            nbytes = Qc.numel() * 4
+            fields[case] = dict(
+                T=T, M=M, V=x.shape[-1], kernel=kname, cluster=geo.cluster,
+                kernel_ms=ms, kernel_us_per_step=1e3 * ms / T,
+                kernel_wall_ms=_timed_ms(run, 5),
+                plain_device_ms=_device_busy_ms(plain),
+                plain_wall_ms=_timed_ms(plain, 3),
+                bound_ms=1e3 * nbytes / 3.35e12, bound_by="b",
+                max_abs_err_vs_f64=err, plain_f32_err_vs_f64=f32,
+                launches=launches)
+            if launches != 1 or not err <= 4 * f32 + 1e-7:
+                failures.append(
+                    f"8b {direction} sweep at {case}: {launches} launches "
+                    f"(want 1), gap to float64 {err:.3e} (want <= 4 x the "
+                    f"float32 loop's {f32:.3e})")
+        _line("phase8b_sweep", direction=direction, **fields)
+        out[direction] = fields
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
 
 
 def phase_config4(dev, job, p4) -> dict:
@@ -1441,11 +1546,18 @@ def phase_config4(dev, job, p4) -> dict:
               and np.all(np.isfinite(res.uks)) and res.reg_loss < reg0
               and launches["expm_forward"] >= 1)
         if engine == "auto":
-            ok = (ok and res.engine == "pscan"
+            # a loss-and-gradient each of iterations 0..N, one forward
+            # more for the final readout: every sweep in the kernels
+            sweeps = (launches["pscan_reverse"] == res.iterations + 1
+                      and launches["pscan_forward"]
+                      == launches["pscan_reverse"] + 1)
+            ok = (ok and res.engine == "pscan" and sweeps
                   and launches["expm_backward"] == 0
                   and fid_gap <= 5e-5 and 1.0 - res.loss >= CONFIG4_BAR)
             bar = (f"routed to {res.engine!r} (want 'pscan'), launches "
-                   f"{launches} (expm_forward >= 1, expm_backward 0), "
+                   f"{launches} (expm_forward >= 1, expm_backward 0, "
+                   f"pscan_reverse {res.iterations + 1}, pscan_forward "
+                   f"{res.iterations + 2}), "
                    f"|fidelity_f64 - (1 - loss)| {fid_gap:.3e} (<= 5e-5), "
                    f"1 - loss {1.0 - res.loss:.6f} (>= {CONFIG4_BAR})")
         else:
@@ -2866,11 +2978,12 @@ EXAMPLE_RUNS = [
      GAP_CEILING),
     ("04_transmon_cavity", ("expm_forward",), "pscan", EXAMPLE04_ITERATIONS,
      5e-5)]
-# 13b: tests_gpu's tests (the 16 counterparts of tests_tpu's and the four
-# cases with no counterpart, test_spans_on_gpu.py's and
-# test_fidelity_f64_on_gpu.py's), and the one skip allowed (the card's
-# machine has no h5py; resume on the card is phase 9b's)
-LANE_TESTS = 20
+# 13b: tests_gpu's tests (the 16 counterparts of tests_tpu's and the 13
+# cases with no counterpart, test_spans_on_gpu.py's,
+# test_fidelity_f64_on_gpu.py's and test_pscan_on_gpu.py's), and the one
+# skip allowed (the card's machine has no h5py; resume on the card is
+# phase 9b's)
+LANE_TESTS = 34
 LANE_SKIP = "test_grape_save_resume_roundtrip_on_gpu"
 # 13c: tools/torch_scaling_evidence.py's modes on the card
 SCALING_ARGV = ["--dispatch", "--collectives", "1", "--weak", "2",

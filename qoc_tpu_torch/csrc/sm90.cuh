@@ -1,7 +1,8 @@
 // Hopper (sm_90) device helpers: asynchronous global -> shared copies
 // (cp.async, with zero fill: a copy whose source is out of range reads
-// nothing and writes zeros) and thread block clusters (rank, size, the
-// cluster barrier and reads of another block's shared memory).
+// nothing and writes zeros), thread block clusters (rank, size, the
+// cluster barrier and reads of another block's shared memory), and bulk
+// copies that complete on transaction barriers (mbarrier).
 
 #pragma once
 
@@ -73,6 +74,63 @@ __device__ __forceinline__ void cluster_sync() {
       "barrier.cluster.arrive.release.aligned;\n"
       "barrier.cluster.wait.acquire.aligned;\n" ::
           : "memory");
+}
+
+// Transaction barriers (mbarrier) and bulk copies (cp.async.bulk, the
+// copy engine's contiguous form of TMA).  A barrier in shared memory
+// counts arrivals and bytes; a phase ends when both reach what was set.
+__device__ __forceinline__ unsigned smem_addr(const unsigned long long* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// One thread, before any use (then mbar_init_fence and a barrier).
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(arrivals)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One thread: arrive on `bar` expecting `bytes`, and copy them from global
+// memory into this block's shared memory; the copy's completion counts the
+// bytes.  dst, src and bytes are multiples of 16 bytes.
+__device__ __forceinline__ void bulk_load(float* dst, const float* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  const unsigned b = smem_addr(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(b),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(b)
+      : "memory");
+}
+
+// Until the phase of parity `parity` of `bar` has ended; what the phase's
+// copies wrote is then visible to the caller.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const unsigned b = smem_addr(bar);
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(b), "r"(parity)
+        : "memory");
+  }
 }
 
 }  // namespace qoc

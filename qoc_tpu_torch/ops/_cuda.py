@@ -2,7 +2,8 @@
 
 ``nvcc`` compiles each source of ``SOURCES`` (the tree chain, the fused
 segment's two instances, the state chain, the fused batched optimizer's
-two instances, and the batched Taylor exponential) for ``sm_90a`` (one
+two instances, the batched Taylor exponential, and the pscan engine's
+sweeps) for ``sm_90a`` (one
 process per source, all started together), then links them into one
 shared library with a plain C interface, loaded with ctypes.  The build
 runs at the first launch, never at import, into
@@ -27,16 +28,17 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / ".torch_ext_build"
 SOURCES = ("tree_chain.cu", "mega.cu", "mega_costs.cu", "state_chain.cu",
-           "mega_batch.cu", "mega_batch_costs.cu", "expm.cu")
+           "mega_batch.cu", "mega_batch_costs.cu", "expm.cu",
+           "pscan_sweep.cu")
 HEADERS = ("tree_chain.cuh", "mega.cuh", "state_chain.cuh", "mega_batch.cuh",
-           "expm.cuh", "sm90.cuh", "team.cuh")
+           "expm.cuh", "pscan_sweep.cuh", "sm90.cuh", "team.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -68,7 +70,7 @@ LAUNCHES = {"tree_forward": 0, "tree_backward": 0, "mega_segment": 0,
             "mega_segment_costs": 0, "state_chain_forward": 0,
             "state_chain_backward": 0, "mega_batch_segment": 0,
             "mega_batch_segment_costs": 0, "expm_forward": 0,
-            "expm_backward": 0}
+            "expm_backward": 0, "pscan_forward": 0, "pscan_reverse": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -195,6 +197,12 @@ def _library():
                                               _L, _P]
             lib.qoc_expm_scratch_floats.argtypes = [_I, _I, _I, _I]
             lib.qoc_expm_scratch_floats.restype = _L
+            lib.qoc_pscan_geometry.argtypes = [_I, _I, _I, _I, _P]
+            lib.qoc_pscan_geometry.restype = None
+            lib.qoc_pscan_forward.argtypes = [_P, _L, _P, _L, _P] + [_I] * 5 + [
+                _P]
+            lib.qoc_pscan_reverse.argtypes = [_P, _L, _P, _L, _P, _P] + [
+                _I] * 5 + [_P]
             lib.qoc_error_string.argtypes = [_I]
             lib.qoc_error_string.restype = ctypes.c_char_p
             for fn in (lib.qoc_tree_forward, lib.qoc_tree_backward,
@@ -203,7 +211,8 @@ def _library():
                        lib.qoc_state_chain_backward,
                        lib.qoc_mega_batch_segment,
                        lib.qoc_mega_batch_segment_costs,
-                       lib.qoc_expm_forward, lib.qoc_expm_backward):
+                       lib.qoc_expm_forward, lib.qoc_expm_backward,
+                       lib.qoc_pscan_forward, lib.qoc_pscan_reverse):
                 fn.restype = _I
             _lib = lib
     return _lib
@@ -888,3 +897,92 @@ def expm_backward(A, Ebar, order: int, scaling: int):
     _raise_on(code, "expm_backward")
     LAUNCHES["expm_backward"] += 1
     return Abar
+
+
+class PscanGeometry(NamedTuple):
+    """A sweep's launch (``pscan_geometry`` in pscan_sweep.cuh)."""
+
+    cluster: int    # blocks a tile of a seed (a cluster, or a group in L2)
+    rows: int       # rows of Q a block owns (the wide reverse: columns)
+    chunk: int      # on chip: rows a ring stage holds
+    chunks: int     # on chip: stages a step of a full slab takes
+    stages: int     # on chip: ring depth
+    groups: int     # the reverse's row groups
+    smem: int       # dynamic shared memory of a block, bytes
+    wide: int       # 1: the state passes through L2
+    vt: int         # columns a tile
+    tiles: int      # tiles of the V columns
+
+
+def pscan_geometry(M: int, V: int, reps: int,
+                   reverse: bool) -> Optional[PscanGeometry]:
+    """The built library's launch of a sweep on the current card (None
+    where it does not take the shape), for tests and measurements: the
+    launch itself decides, and raises where it cannot."""
+    out = (ctypes.c_int * 10)()
+    _library().qoc_pscan_geometry(M, V, reps, int(reverse), out)
+    return PscanGeometry(*out) if out[0] else None
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x, or a copy of it where its data does not start on the 16 bytes
+    that the sweeps' bulk copies need."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _pscan_operands(Q, x, reps: int, seeds: int, reverse: bool):
+    """(device, T, M, V, seed strides) of a sweep's operands: Q [T, M, M]
+    or [seeds, T, M, M]; x [rows, M, V] or [seeds, rows, M, V] (the
+    forward's psi0 has no rows dimension); an operand without the seeds
+    dimension is every seed's.  The launch decides what shapes it takes."""
+    dev = _check(Q, x)
+    T, M = Q.shape[-3], Q.shape[-1]
+    lead = 3 if reverse else 2
+    if (Q.dim() not in (3, 4) or Q.shape[-2] != M
+            or x.dim() not in (lead, lead + 1) or x.shape[-2] != M
+            or (reverse and x.shape[-3] != T * reps + 1)
+            or (Q.dim() == 4 and Q.shape[0] != seeds)
+            or (x.dim() == lead + 1 and x.shape[0] != seeds)):
+        raise ValueError(
+            f"pscan sweep operands Q {tuple(Q.shape)}, "
+            f"{'g' if reverse else 'psi0'} {tuple(x.shape)}, reps {reps}, "
+            f"{seeds} seeds do not fit together")
+    q_seed = T * M * M if Q.dim() == 4 else 0
+    x_seed = x[0].numel() if x.dim() == lead + 1 else 0
+    return dev, T, M, x.shape[-1], q_seed, x_seed
+
+
+def pscan_forward(Q, psi0, reps: int, seeds: int = 1):
+    """The forward sweep: Q [T, M, M] (or [seeds, T, M, M]), psi0 [M, V]
+    (or [seeds, M, V]) -> vecs [seeds, T * reps + 1, M, V], psi_{p+1} =
+    Q_t psi_p with t = p // reps."""
+    Q, psi0 = _aligned(Q), _aligned(psi0)
+    dev, T, M, V, q_seed, x_seed = _pscan_operands(Q, psi0, reps, seeds,
+                                                   False)
+    vecs = torch.empty((seeds, T * reps + 1, M, V), dtype=torch.float32,
+                       device=dev)
+    code = _library().qoc_pscan_forward(
+        Q.data_ptr(), q_seed, psi0.data_ptr(), x_seed, vecs.data_ptr(),
+        seeds, T, M, V, reps, _stream(dev))
+    _raise_on(code, "pscan_forward")
+    LAUNCHES["pscan_forward"] += 1
+    return vecs
+
+
+def pscan_reverse(Q, g, reps: int, seeds: int = 1):
+    """The adjoint sweep: Q as for the forward, g [T * reps + 1, M, V] (or
+    [seeds, ...]), the cotangent of the trajectory -> (lams [seeds, T *
+    reps, M, V], psi0_bar [seeds, M, V]): lam_i = mu + g_{i+1}, mu <-
+    Q_t^T lam_i for i = T reps - 1 .. 0, psi0_bar = mu + g_0."""
+    Q, g = _aligned(Q), _aligned(g)
+    dev, T, M, V, q_seed, g_seed = _pscan_operands(Q, g, reps, seeds, True)
+    lams = torch.empty((seeds, T * reps, M, V), dtype=torch.float32,
+                       device=dev)
+    psi0_bar = torch.empty((seeds, M, V), dtype=torch.float32, device=dev)
+    code = _library().qoc_pscan_reverse(
+        Q.data_ptr(), q_seed, g.data_ptr(), g_seed, lams.data_ptr(),
+        psi0_bar.data_ptr(), seeds, T, M, V, reps, _stream(dev))
+    _raise_on(code, "pscan_reverse")
+    LAUNCHES["pscan_reverse"] += 1
+    return lams, psi0_bar

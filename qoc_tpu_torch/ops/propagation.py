@@ -7,7 +7,9 @@ Engines, with qoc_tpu's names and auto ladders (``resolve_state_engine``,
     kernels on the card; final state / unitary only.
   * ``pscan``: all step propagators as one batched Taylor series, then a
     serial [M, M] @ [M, V] state sweep, with the matvec-adjoint backward
-    (``pscan_chain``): no M^3 work in the gradient.
+    (``pscan_chain``): no M^3 work in the gradient.  On the card each
+    sweep is one launch of ``csrc/pscan_sweep.cu`` (``pscan_sweep``,
+    ``pscan_reverse_sweep``), elsewhere a loop of products.
   * ``associative``: the batched step propagators and their prefix
     products (``prefix_products``, lax.associative_scan's recursion),
     autograd through both.
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 
 from ..utils.profiling import spanned
+from . import _cuda
 from .expm import taylor_expm, taylor_expm_matvec, weighted_hamiltonians
 from .fused_expm import fused_expm_supported, fused_taylor_expm
 from .remat import recompute
@@ -253,34 +256,135 @@ def _pscan_run(mats, weights, psi0, order: int, reps: int):
     return pscan_sweep(Q, psi0, reps), A, Q
 
 
-@spanned("qoc.pscan.sweep")
-def pscan_sweep(Q, psi0, reps: int):
-    """The forward sweep: psi <- Q_t psi, ``reps`` times per step, from
-    psi0 [M, V]; the sub-step trajectory [T*reps + 1, M, V]."""
+def pscan_sweep_plain(Q, psi0, reps: int):
+    """The forward sweep as a loop of products (the CPU's, and the
+    reference the card's tests hold the kernel to): psi <- Q_t psi,
+    ``reps`` times a step, from psi0 [..., M, V]; the sub-step trajectory
+    [..., T*reps + 1, M, V].  Leading dimensions of Q [..., T, M, M] and
+    psi0 are seeds."""
     psi = psi0
     vecs = [psi0]
-    for Qt in Q.unbind(0):
+    for Qt in Q.unbind(-3):
         for _ in range(reps):
             psi = torch.matmul(Qt, psi)
             vecs.append(psi)
-    return torch.stack(vecs)
+    return torch.stack(vecs, dim=-3)
+
+
+def pscan_reverse_plain(Q, g, reps: int):
+    """The adjoint sweep as a loop of products, over sub-steps i =
+    T*reps-1 .. 0: lam_i = mu + g_{i+1} (the full cotangent of the state
+    after sub-step i), then mu = Q_t^T lam_i.  g [..., T*reps + 1, M, V]
+    -> (lams [..., T, reps, M, V], psi0_bar)."""
+    T = Q.shape[-3]
+    gsub = g[..., 1:, :, :]
+    QT = Q.mT.unbind(-3)
+    mu = torch.zeros_like(g[..., 0, :, :])
+    lams = [None] * (T * reps)
+    for i in range(T * reps - 1, -1, -1):
+        lam = mu + gsub[..., i, :, :]
+        lams[i] = lam
+        mu = torch.matmul(QT[i // reps], lam)
+    return (torch.stack(lams, dim=-3).reshape(*g.shape[:-3], T, reps,
+                                              *g.shape[-2:]),
+            mu + g[..., 0, :, :])
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """A sweep on a CUDA tensor is the kernel's, whatever its shape: one it
+    cannot take (not float32) raises there, and never runs the loop."""
+    return x.device.type == "cuda"
+
+
+def _seeds_first(x: torch.Tensor, bdim):
+    return x if bdim is None else x.movedim(bdim, 0)
+
+
+def _every_seed(x: torch.Tensor, batched: bool, seeds: int, dims: int):
+    """x with the seeds dimension in front (a view of the shared one)."""
+    return x if batched else x.expand(seeds, *x.shape[-dims:])
+
+
+class _PscanSweep(torch.autograd.Function):
+    """The forward sweep: ``_cuda.pscan_forward`` on a CUDA tensor,
+    ``pscan_sweep_plain`` elsewhere.  Its vmap rule makes a vmapped batch
+    one launch, the seeds the grid."""
+
+    @staticmethod
+    def forward(Q, psi0, reps):
+        if _on_card(Q):
+            return _cuda.pscan_forward(Q, psi0, reps)[0]
+        return pscan_sweep_plain(Q, psi0, reps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "the pscan sweeps are differentiated by _PscanChain's adjoint")
+
+    @staticmethod
+    def vmap(info, in_dims, Q, psi0, reps):
+        B = info.batch_size
+        Q, psi0 = _seeds_first(Q, in_dims[0]), _seeds_first(psi0, in_dims[1])
+        if _on_card(Q):
+            return _cuda.pscan_forward(Q, psi0, reps, B), 0
+        return pscan_sweep_plain(
+            _every_seed(Q, in_dims[0] is not None, B, 3),
+            _every_seed(psi0, in_dims[1] is not None, B, 2), reps), 0
+
+
+class _PscanReverse(torch.autograd.Function):
+    """The adjoint sweep: ``_cuda.pscan_reverse`` on a CUDA tensor,
+    ``pscan_reverse_plain`` elsewhere; vmap as ``_PscanSweep``."""
+
+    @staticmethod
+    def forward(Q, g, reps):
+        if _on_card(Q):
+            lams, psi0_bar = _cuda.pscan_reverse(Q, g, reps)
+            return lams[0].reshape(Q.shape[0], reps, *g.shape[1:]), psi0_bar[0]
+        return pscan_reverse_plain(Q, g, reps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, lams_bar, psi0_bar_bar):
+        raise NotImplementedError(
+            "the pscan sweeps are differentiated by _PscanChain's adjoint")
+
+    @staticmethod
+    def vmap(info, in_dims, Q, g, reps):
+        B = info.batch_size
+        Q, g = _seeds_first(Q, in_dims[0]), _seeds_first(g, in_dims[1])
+        if _on_card(Q):
+            lams, psi0_bar = _cuda.pscan_reverse(Q, g, reps, B)
+            T = Q.shape[-3]
+            return (lams.reshape(B, T, reps, *g.shape[-2:]), psi0_bar), (0, 0)
+        return pscan_reverse_plain(
+            _every_seed(Q, in_dims[0] is not None, B, 3),
+            _every_seed(g, in_dims[1] is not None, B, 3), reps), (0, 0)
+
+
+@spanned("qoc.pscan.sweep")
+def pscan_sweep(Q, psi0, reps: int):
+    """The forward sweep: psi <- Q_t psi, ``reps`` times per step, from
+    psi0 [M, V]; the sub-step trajectory [T*reps + 1, M, V].  One kernel
+    launch on the card (``csrc/pscan_sweep.cu``), the plain loop
+    elsewhere; under ``torch.func.vmap`` one launch for every seed."""
+    return _PscanSweep.apply(Q, psi0, reps)
 
 
 @spanned("qoc.pscan.reverse")
 def pscan_reverse_sweep(Q, g, reps: int):
     """The adjoint sweep over sub-steps i = T*reps-1 .. 0: lam_i = mu + g_i
     (the full cotangent of the state after sub-step i), then mu = Q_t^T
-    lam_i.  g [T*reps + 1, M, V] -> (lams [T, reps, M, V], psi0_bar)."""
-    T = Q.shape[0]
-    gsub = g[1:]
-    QT = Q.mT.unbind(0)
-    mu = torch.zeros_like(g[0])
-    lams = [None] * (T * reps)
-    for i in range(T * reps - 1, -1, -1):
-        lam = mu + gsub[i]
-        lams[i] = lam
-        mu = torch.matmul(QT[i // reps], lam)
-    return torch.stack(lams).reshape(T, reps, *g.shape[1:]), mu + g[0]
+    lam_i.  g [T*reps + 1, M, V] -> (lams [T, reps, M, V], psi0_bar); one
+    launch on the card, as ``pscan_sweep``."""
+    return _PscanReverse.apply(Q, g, reps)
 
 
 def _coefficients(q: int, like: torch.Tensor) -> torch.Tensor:
@@ -334,9 +438,10 @@ class _PscanChain(torch.autograd.Function):
     layer's vmapped backend): the forward returns the intermediates A and
     Q beside the trajectory, marked non-differentiable, for the backward
     to reuse (recomputing them would cost a second batched Taylor series),
-    and the vmap rule is generated: forward and backward are torch ops
-    and ``fused_taylor_expm``, whose own rule folds the vmapped seeds into
-    the timesteps, so one batched series serves every seed."""
+    and the vmap rule is generated: forward and backward are torch ops,
+    ``fused_taylor_expm``, whose own rule folds the vmapped seeds into
+    the timesteps, so one batched series serves every seed, and the two
+    sweeps, whose rules make every seed one launch."""
 
     generate_vmap_rule = True
 

@@ -6,7 +6,9 @@ vmapped ``"xla"`` backend calls each seed's loss under
 same call, with and without a per-seed generator sweep; ``vmap(grad)``
 through ``pscan_chain`` against a loop of per-seed ``autograd.grad``; and
 the tree kernels' Function under ``vmap(grad)`` with stand-in launchers
-(kernels 1-2 run on the card only), against the plain chain.  Inputs are
+(kernels 1-2 run on the card only), against the plain chain; the pscan
+sweeps' own vmap rules, on the plain path and, with stand-in launchers, as
+one launch a direction for every seed.  Inputs are
 made with numpy from a seed and handed to both packages."""
 
 import jax.numpy as jnp
@@ -20,7 +22,9 @@ import qoc_tpu_torch.parallel.batch as tbatch
 from qoc_tpu.models.system import ControlProblem
 from qoc_tpu_torch.models.system import ControlProblem as TorchProblem
 from qoc_tpu_torch.ops import _cuda
-from qoc_tpu_torch.ops.propagation import _PscanChain, pscan_chain
+from qoc_tpu_torch.ops.propagation import (
+    _PscanChain, _PscanReverse, _PscanSweep, pscan_chain, pscan_reverse_sweep,
+    pscan_sweep)
 from qoc_tpu_torch.ops.tree_chain import (
     _TreeBackward, _TreeChain, tree_chain_reference)
 
@@ -113,6 +117,68 @@ def test_vmapped_pscan_gradient_matches_a_seed_loop(reps):
                                        atol=1e-6)
 
 
+@pytest.mark.parametrize("dims", [(0, None), (None, 0), (0, 0)],
+                         ids=["q_batched", "x_batched", "both"])
+def test_sweep_vmap_rules_on_the_plain_path(dims):
+    """The sweeps' own vmap rules on the CPU (the plain loops over the
+    seeds dimension) against a loop of per-seed sweeps, 1e-6: Q per seed
+    and psi0 or g shared, the other way round, and both per seed."""
+    rng = np.random.default_rng(11)
+    S, T, M, V, reps = 3, 6, 16, 2, 2
+
+    def make(shape, batched):
+        x = rng.standard_normal(((S,) if batched else ()) + shape)
+        return torch.tensor(x.astype(np.float32))
+
+    Q = torch.eye(M) + 0.1 * make((T, M, M), dims[0] == 0)
+    psi0 = make((M, V), dims[1] == 0)
+    g = make((T * reps + 1, M, V), dims[1] == 0)
+    vecs = torch.func.vmap(pscan_sweep, in_dims=(*dims, None))(Q, psi0, reps)
+    lams, bar = torch.func.vmap(pscan_reverse_sweep,
+                                in_dims=(*dims, None))(Q, g, reps)
+    for s in range(S):
+        Qs = Q[s] if dims[0] == 0 else Q
+        xs, gs = (psi0[s], g[s]) if dims[1] == 0 else (psi0, g)
+        np.testing.assert_allclose(vecs[s].numpy(),
+                                   pscan_sweep(Qs, xs, reps).numpy(),
+                                   atol=1e-6)
+        want_l, want_b = pscan_reverse_sweep(Qs, gs, reps)
+        np.testing.assert_allclose(lams[s].numpy(), want_l.numpy(),
+                                   atol=1e-6)
+        np.testing.assert_allclose(bar[s].numpy(), want_b.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("reps", [1, 2])
+def test_vmapped_pscan_chain_launches_each_sweep_once(reps, monkeypatch):
+    """vmap(grad) through ``pscan_chain`` on the card's route, with
+    stand-in launchers (the kernels run on the card only): the seeds reach
+    one launch a direction, and the gradients are the per-seed loop's,
+    1e-6."""
+    from test_torch_pscan_sweep import stand_in_launchers
+
+    calls = {"pscan_forward": [], "pscan_reverse": []}
+    stand_in_launchers(monkeypatch, calls)
+    rng = np.random.default_rng(4)
+    S, K, M, T, V, order = 3, 3, 16, 6, 2, 5
+    mats = torch.tensor((rng.standard_normal((K, M, M)) * 0.1)
+                        .astype(np.float32))
+    w = torch.tensor(rng.standard_normal((S, K, T)).astype(np.float32))
+    psi0 = torch.tensor(rng.standard_normal((M, V)).astype(np.float32))
+    R = torch.tensor(rng.standard_normal((T * reps + 1, M, V))
+                     .astype(np.float32))
+
+    def loss(w_):
+        return torch.sum(pscan_chain(mats, w_, psi0, order, reps) * R)
+
+    got = torch.func.vmap(torch.func.grad(loss))(w)
+    assert calls == {"pscan_forward": [S], "pscan_reverse": [S]}
+    monkeypatch.undo()
+    for s in range(S):
+        ws = w[s].clone().requires_grad_(True)
+        (want,) = torch.autograd.grad(loss(ws), ws)
+        np.testing.assert_allclose(got[s].numpy(), want.numpy(), atol=1e-6)
+
+
 def _stand_in_launchers(monkeypatch, calls):
     """Kernels 1-2 replaced by plain torch with the launchers' signatures:
     the forward returns a stand-in for the segment and block products, and
@@ -162,10 +228,12 @@ def test_tree_function_under_vmap_grad(monkeypatch):
 
 
 def test_engine_functions_are_new_style():
-    """Both Functions take their context in ``setup_context`` and carry a
-    vmap rule (generated for pscan, written out for the tree kernels)."""
-    for fn in (_PscanChain, _TreeChain, _TreeBackward):
+    """The Functions take their context in ``setup_context`` and carry a
+    vmap rule (generated for pscan, written out for the tree kernels and
+    the pscan sweeps)."""
+    for fn in (_PscanChain, _TreeChain, _TreeBackward, _PscanSweep,
+               _PscanReverse):
         assert fn.setup_context is not torch.autograd.Function.setup_context
     assert _PscanChain.generate_vmap_rule
-    assert _TreeChain.vmap is not torch.autograd.Function.vmap
-    assert _TreeBackward.vmap is not torch.autograd.Function.vmap
+    for fn in (_TreeChain, _TreeBackward, _PscanSweep, _PscanReverse):
+        assert fn.vmap is not torch.autograd.Function.vmap

@@ -27,9 +27,21 @@ CARD_ONLY = {("test_spans_on_gpu.py",
              ("test_fidelity_f64_on_gpu.py",
               "test_fidelity_readout_matches_the_host_loop_on_gpu"),
              ("test_fidelity_f64_on_gpu.py",
-              "test_grape_reads_its_fidelity_on_the_card_on_gpu")}
+              "test_grape_reads_its_fidelity_on_the_card_on_gpu"),
+             ("test_pscan_on_gpu.py",
+              "test_grape_config4_routes_every_sweep_to_the_kernels"),
+             ("test_pscan_on_gpu.py",
+              "test_the_launch_takes_every_shape_the_ladder_sends")}
 # the cases pytest counts for them (the readout's test has two)
-CARD_ONLY_CASES = 4
+CARD_ONLY_CASES = 6
+# lane tests with no tests_tpu counterpart that the CPU switch runs too:
+# the pscan sweep kernels against float64 loops (qoc_tpu runs those sweeps
+# as lax.scan, with no kernel of its own)
+LANE_ONLY = {("test_pscan_on_gpu.py", name) for name in (
+    "test_sweeps_hold_the_float32_floor", "test_a_vmapped_batch_is_one_launch",
+    "test_vmapped_gradient_through_pscan_chain")}
+# the cases pytest counts for them (the first has ten shapes)
+LANE_ONLY_CASES = 12
 # seconds for the lane on the CPU; a run that takes longer fails
 LANE_TIMEOUT = 90
 
@@ -71,18 +83,19 @@ def test_every_tpu_test_has_a_gpu_counterpart():
             for f, n in PAIRS}
     got = {(f, n) for f in os.listdir(GPU) if f.startswith("test_")
            for n in _tests(os.path.join(GPU, f))}
-    assert got == want | CARD_ONLY
+    assert got == want | CARD_ONLY | LANE_ONLY
 
 
 def test_chip_smoke_counts_every_lane_test():
     """chip_smoke.py's group 13b runs the lane on the card and wants
-    exactly LANE_TESTS cases: the counterparts and the card-only tests."""
+    exactly LANE_TESTS cases: the counterparts, the card-only tests and
+    the other lane-only tests."""
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         tree = ast.parse(f.read())
     lane_tests, = [ast.literal_eval(n.value) for n in tree.body
                    if isinstance(n, ast.Assign)
                    and [t.id for t in n.targets] == ["LANE_TESTS"]]
-    assert lane_tests == N_TESTS + CARD_ONLY_CASES
+    assert lane_tests == N_TESTS + CARD_ONLY_CASES + LANE_ONLY_CASES
 
 
 @pytest.mark.parametrize("tpu_file,name", PAIRS,
@@ -109,12 +122,13 @@ def _lane(**env):
 def test_lane_passes_on_the_cpu():
     out = _lane(QOC_TPU_TORCH_TEST_DEVICE="cpu")
     assert out.returncode == 0, out.stdout + out.stderr
-    assert f"{N_TESTS} passed" in out.stdout, out.stdout
+    assert f"{N_TESTS + LANE_ONLY_CASES} passed" in out.stdout, out.stdout
     assert f"{CARD_ONLY_CASES} skipped" in out.stdout, out.stdout
 
 
 def test_lane_skips_without_a_card():
     out = _lane(CUDA_VISIBLE_DEVICES="")
     assert out.returncode == 0, out.stdout + out.stderr
-    assert f"{N_TESTS + CARD_ONLY_CASES} skipped" in out.stdout, out.stdout
+    assert (f"{N_TESTS + CARD_ONLY_CASES + LANE_ONLY_CASES} skipped"
+            in out.stdout), out.stdout
     assert "needs an NVIDIA card" in out.stdout, out.stdout
